@@ -36,6 +36,11 @@ FORCED_DEVICES = 8
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where torch sees none")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
