@@ -8,23 +8,39 @@ Phases (any failure exits non-zero and prints no result):
      limit as nvidia-smi reports them;
   2. builds the hand-written kernels from src/repro_torch/csrc with nvcc
      (sm_90a), one nvcc per source, all started together;
-  3. the slice: ``repro_torch.launch.train.main`` at the paper's full
-     Table-3 widths, 8 clients, --epochs 6 --federate-every 2 (two
-     FedAvg warm-up rounds, then clustered rounds), with every kernel's
-     launch count set to 0 just before and read just after;
+  3. the training slice: ``repro_torch.launch.train.main`` at the paper's
+     full Table-3 widths, 8 clients, --epochs 6 --federate-every 2 (two
+     FedAvg warm-up rounds, then clustered rounds), with the launch
+     counts of K1/K2 set to 0 just before and read just after;
   4. checks the outcome: the rounds ran, every kernel launched, losses
      and parameters are finite, the generator's images have the right
      shape and range, a clustered round through the kernels equals the
      same round through their plain expressions, and a small trainer on
      the card agrees with the same trainer on the CPU;
-  5. holds K1 (clustered_agg) and K2 (kmeans_assign) against their plain
-     PyTorch versions at the slice's shapes, plus ragged and tied cases;
-  6. times each kernel, its plain version and, for K1, the one PyTorch
-     call that computes the same function (torch.matmul), then one
-     epoch and one clustered round of the slice's trainer, and profiles
-     one epoch (device busy share, the kernels that take the time);
-  7. prints a JSON line with the slice's times, one with the kernels,
-     then the result line.
+  5. GAN split serving: ``repro_torch.launch.serve_split.main --mode gan``
+     at full width on both profile mixes (24 requests each); the images
+     are finite, in the tanh range and equal each client's monolithic
+     eval-mode forward, and a one-group cohort drops the absent cuts;
+     one served cohort per mix is profiled (device busy share);
+  6. LM split serving: ``serve_split.main --mode lm`` with the launch
+     counts of K3/K4 set to 0 just before and read just after (K3 once
+     per block per generate call, K4 once per block per decoded token);
+     the greedy tokens are the argmax of the teacher-forced decode
+     logits, which match the dense monolithic forward; one generate call
+     is profiled;
+  7. holds K1 (clustered_agg) and K2 (kmeans_assign) against their plain
+     PyTorch versions at the slice's shapes, plus ragged and tied cases,
+     and K3 (mem_attention) and K4 (flash_decode) over head dims, GQA
+     groups, ragged lengths and masks, up to the granite-3-2b attention
+     shapes;
+  8. times each kernel, its plain version and the one PyTorch call that
+     computes the same function (torch.matmul for K1,
+     scaled_dot_product_attention for K3/K4), K3/K4 at the LM's shape
+     and at the granite-3-2b shape, then one epoch and one clustered
+     round of the slice's trainer, and profiles one epoch (device busy
+     share, the kernels that take the time);
+  9. prints a JSON line with the slice's times, one with the serving
+     times (``serve``), one with the kernels, then the result line.
 
 Float32 products and convolutions run in full float32 (TF32 off).
 """
@@ -45,6 +61,16 @@ PEAK_FP32_FLOPS = 67e12        # H100 SXM float32, outside the tensor cores
 # differ by a few ulps of the sum; 1e-5 relative to the output scale
 # leaves two orders of magnitude above that.
 K1_RTOL = 1e-5
+# K3/K4 vs plain: the JAX kernel tests' float32 tolerance (an online and a
+# dense softmax sum the same terms in another order)
+ATTN_TOL = 2e-5
+# served images vs each client's monolithic forward: the same float32
+# layers run as grouped and as single convolutions (the port's forward
+# tolerance)
+GAN_TOL = 1e-4
+# split LM decode logits vs the dense monolithic forward (the reference's
+# own engine-vs-oracle tolerance)
+LM_TOL = 2e-4
 
 
 def log(msg: str) -> None:
@@ -316,6 +342,271 @@ def check_kernels(tr):
     ]
 
 
+def monolithic_image(engine, req):
+    """The oracle of one request: its client's full generator (personal
+    head/tail rows and the server's middle layers) run unsplit in eval
+    mode."""
+    import torch
+    from repro_torch.models.gan import GEN_LAYER_DEFS
+    from repro_torch.tree import tree_map
+    g = next(gg for gg in engine.groups if req.client_id in gg.client_ids)
+    row = g.client_ids.index(req.client_id)
+    dev = engine.device
+    x = (torch.as_tensor(req.z, device=dev)[None, None],
+         torch.tensor([[req.y]], device=dev))
+    with torch.no_grad():
+        for l, layer in enumerate(GEN_LAYER_DEFS):
+            if l < g.cut.g_h or l >= g.cut.g_t:
+                p = tree_map(lambda a: a[row:row + 1],
+                             engine.client_params[g.name][str(l)])
+            else:
+                p = tree_map(lambda a: a[None], engine.server_params[str(l)])
+            x, _ = layer.apply(p, x, False)
+    return x[0, 0].cpu().numpy()
+
+
+def check_gan_serving(serve_main) -> dict:
+    """Both profile mixes through the serving CLI at full width: images
+    finite, shaped [24, 28, 28, 1] and in the tanh range, each equal to
+    its client's monolithic forward, and a one-group cohort compiles a
+    subprogram without the other cuts."""
+    import numpy as np
+    from repro_torch.launch.serve_split import ServeRequest
+    out = {}
+    for mix in ("edge-heavy", "balanced"):
+        res = serve_main(["--mode", "gan", "--mix", mix, "--device", "cuda"])
+        imgs, eng, reqs = res["images"], res["engine"], res["requests"]
+        if imgs.shape != (24, 28, 28, 1) or not np.isfinite(imgs).all() \
+                or np.abs(imgs).max() > 1.0:
+            raise AssertionError(f"{mix}: served images {imgs.shape} are "
+                                 "malformed")
+        err = max(float(np.abs(imgs[i] - monolithic_image(eng, r)).max())
+                  for i, r in enumerate(reqs))
+        if not err <= GAN_TOL:
+            raise AssertionError(f"{mix}: served images differ from the "
+                                 f"monolithic forward by {err}")
+        g0 = eng.groups[0]
+        sub = [ServeRequest(g0.client_ids[0], reqs[0].z, 7)]
+        active = eng.plan(sub)[0]
+        prog = eng.program_for(active)
+        if active != (g0.name,) or prog.group_names != (g0.name,) or \
+                prog.server_span() != tuple(range(g0.cut.g_h, g0.cut.g_t)):
+            raise AssertionError(f"{mix}: one-group cohort compiled "
+                                 f"{prog.group_names} over "
+                                 f"{prog.server_span()}")
+        sub_err = float(np.abs(eng.serve(sub)[0]
+                               - monolithic_image(eng, sub[0])).max())
+        if not sub_err <= GAN_TOL:
+            raise AssertionError(f"{mix}: one-group cohort differs by "
+                                 f"{sub_err}")
+        out[mix] = {"measured_ms": res["measured_s"] * 1e3,
+                    "analytic_ms": res["analytic_s"] * 1e3,
+                    "ratio": res["measured_s"] / res["analytic_s"],
+                    "groups": len(eng.groups), "active_cuts": len(eng.plan(
+                        reqs)[0]), "max_abs_err": max(err, sub_err),
+                    "profile": device_profile(lambda: eng.serve(reqs),
+                                              top_n=4)}
+        log(f"GAN serving {mix}: busy share "
+            f"{out[mix]['profile']['busy_share']:.3f}; measured {out[mix]['measured_ms']:.3f} ms "
+            f"vs analytic {out[mix]['analytic_ms']:.3f} ms (ratio "
+            f"{out[mix]['ratio']:.4f}); max |d| vs monolithic {err:.3e}")
+    return out
+
+
+def check_lm_serving(serve_main) -> dict:
+    """The LM through the serving CLI with the K3/K4 counts set to 0
+    before and read after; then the greedy tokens against the decode
+    logits and those against the dense monolithic forward."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import mem_attention as ma
+    from repro_torch.launch.serve_split import (lm_reference_logits,
+                                                split_lm_decode_logits,
+                                                split_lm_generate)
+    ma.launches = 0
+    fd.launches = 0
+    res = serve_main(["--mode", "lm", "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = {"mem_attention": ma.launches, "flash_decode": fd.launches}
+    cfg, calls = res["cfg"], res["generate_calls"]
+    n_gen = res["tokens"].shape[1]
+    want = {"mem_attention": cfg.n_layers * calls,
+            "flash_decode": cfg.n_layers * (n_gen - 1) * calls}
+    if counts != want:
+        raise AssertionError(f"LM serving launched {counts}, expected "
+                             f"{want} for {calls} generate calls")
+    prompt, params = res["prompt"], res["params"]
+    toks = torch.as_tensor(res["tokens"], device=prompt.device)
+    full = torch.cat([prompt, toks], 1)
+    P = prompt.shape[1]
+    logits = split_lm_decode_logits(cfg, params, full, P)
+    if not torch.equal(toks, torch.argmax(logits, -1).to(torch.int32)):
+        raise AssertionError("greedy tokens are not the argmax of the "
+                             "decode logits")
+    dense = lm_reference_logits(cfg, params, full)[:, P - 1:-1]
+    err = float((logits - dense).abs().max())
+    if not bool(((logits - dense).abs() <= LM_TOL + LM_TOL * dense.abs()
+                 ).all()):
+        raise AssertionError(f"decode logits differ from the dense forward "
+                             f"by {err}")
+    prof = device_profile(lambda: split_lm_generate(cfg, params, prompt,
+                                                    n_gen), top_n=4)
+    log(f"LM serving: {res['tok_per_s']:.1f} tok/s, launches {counts}, "
+        f"max |d logits| vs dense {err:.3e}; generate busy share "
+        f"{prof['busy_share']:.3f}")
+    return {"tok_per_s": res["tok_per_s"], "generate_s": res["seconds"],
+            "batch": int(prompt.shape[0]), "prompt": P, "gen": n_gen,
+            "launches": counts,
+            "launches_per_generate": {k: v // calls
+                                      for k, v in counts.items()},
+            "max_abs_logit_err": err, "profile": prof}
+
+
+def _valid_err(got, want, lens) -> float:
+    """Max abs difference over the rows before each batch row's length."""
+    return max(float((got[b, :int(n)] - want[b, :int(n)]).abs().max())
+               for b, n in enumerate(lens.tolist()) if n > 0)
+
+
+def check_attention(gen) -> float:
+    """K3 and K4 against their plain versions; returns the worst error."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import mem_attention as ma
+    from repro_torch.kernels.ref import flash_decode_ref, mem_attention_ref
+    dev = torch.device("cuda")
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    worst = {"mem_attention": 0.0, "flash_decode": 0.0}
+
+    def record(name, err, what):
+        if not err <= ATTN_TOL:
+            raise AssertionError(f"{name} disagrees at {what}: {err}")
+        worst[name] = max(worst[name], err)
+
+    for S in (37, 128, 300, 4096):
+        for hd in (16, 64, 128):
+            for G in (1, 2, 4):
+                KV = 2
+                q, k, v = rand(2, S, KV * G, hd), rand(2, S, KV, hd), \
+                    rand(2, S, KV, hd)
+                lens = torch.tensor([S, S - 5], dtype=torch.int32, device=dev)
+                for causal in (True, False):
+                    got = ma.mem_attention(q, k, v, lens, causal)
+                    want = mem_attention_ref(q, k, v, lens, causal)
+                    torch.cuda.synchronize()
+                    record("mem_attention", _valid_err(got, want, lens),
+                           f"S={S} hd={hd} G={G} causal={causal}")
+    for S in (64, 1000, 32768):
+        for hd in (16, 64, 128):
+            q, k, v = rand(2, 8, hd), rand(2, S, 2, hd), rand(2, S, 2, hd)
+            for clen in (1, S - 7, S):
+                want = flash_decode_ref(q, k, v, clen)
+                for length in (clen, torch.tensor(clen, dtype=torch.int32,
+                                                  device=dev)):
+                    got = fd.flash_decode(q, k, v, length)
+                    torch.cuda.synchronize()
+                    record("flash_decode", float((got - want).abs().max()),
+                           f"S={S} hd={hd} cache_len={clen}")
+    # corrupting K/V at or past the length changes no valid output
+    q, k, v = rand(2, 48, 4, 16), rand(2, 48, 2, 16), rand(2, 48, 2, 16)
+    lens = torch.tensor([30, 17], dtype=torch.int32, device=dev)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 17:], v2[:, 17:] = 55.0, -55.0
+    if not torch.equal(ma.mem_attention(q, k, v, lens)[1, :17],
+                       ma.mem_attention(q, k2, v2, lens)[1, :17]):
+        raise AssertionError("K3 reads keys past the row's length")
+    if not torch.equal(fd.flash_decode(q[:, 3].contiguous(), k, v, 17),
+                       fd.flash_decode(q[:, 3].contiguous(), k2, v2, 17)):
+        raise AssertionError("K4 reads cache rows past cache_len")
+    log(f"K3/K4 vs plain: worst max abs err {worst} (tolerance {ATTN_TOL})")
+    return worst
+
+
+def time_attention(gen, lm_cfg, lm_batch: int, lm_prompt: int,
+                   lm_gen: int) -> dict:
+    """K3 and K4 against their plain versions and one
+    scaled_dot_product_attention call, at the LM's shapes and at the
+    granite-3-2b attention shapes (H 32, KV 8, hd 64: K3 at B 1, S 4096,
+    causal; K4 at B 8 over 32768 cached positions)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import mem_attention as ma
+    from repro_torch.kernels.ref import flash_decode_ref, mem_attention_ref
+    dev = torch.device("cuda")
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def k3(B, S, H, KV, hd, iters):
+        q, k, v = rand(B, S, H, hd), rand(B, S, KV, hd), rand(B, S, KV, hd)
+        lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+        pos = torch.arange(S, device=dev)
+        mask = ((pos[None, :] <= pos[:, None])[None, None]
+                & (pos[None, None, None, :] < lens[:, None, None, None]))
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+        lib_err = float((lib().transpose(1, 2)
+                         - mem_attention_ref(q, k, v, lens)).abs().max())
+        pairs = B * S * (S + 1) / 2
+        b_ms, b_by = bound(4.0 * (2 * B * S * H * hd + 2 * B * S * KV * hd + B),
+                           4.0 * hd * H * pairs)
+        return {"shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
+                          "causal": True},
+                "ms": time_ms(lambda: ma.mem_attention(q, k, v, lens),
+                              iters=iters),
+                "plain_ms": time_ms(lambda: mem_attention_ref(q, k, v, lens),
+                                    iters=iters),
+                "library_ms": time_ms(lib, iters=iters),
+                "library_max_abs_diff": lib_err,
+                "bound_ms": b_ms, "bound_by": b_by}
+
+    def k4(B, S, clen, H, KV, hd, iters):
+        q, k, v = rand(B, H, hd), rand(B, S, KV, hd), rand(B, S, KV, hd)
+        mask = (torch.arange(S, device=dev) < clen)[None, None, None, :]
+        qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+        lib_err = float((lib()[:, :, 0]
+                         - flash_decode_ref(q, k, v, clen)).abs().max())
+        b_ms, b_by = bound(4.0 * (2 * B * H * hd + 2 * B * clen * KV * hd),
+                           4.0 * B * H * clen * hd)
+        return {"shape": {"B": B, "S": S, "cache_len": clen, "H": H,
+                          "KV": KV, "hd": hd},
+                "ms": time_ms(lambda: fd.flash_decode(q, k, v, clen),
+                              iters=iters),
+                "plain_ms": time_ms(lambda: flash_decode_ref(q, k, v, clen),
+                                    iters=iters),
+                "library_ms": time_ms(lib, iters=iters),
+                "library_max_abs_diff": lib_err,
+                "bound_ms": b_ms, "bound_by": b_by}
+
+    c = lm_cfg
+    out = {
+        "mem_attention": {
+            "lm": k3(lm_batch, lm_prompt, c.n_heads, c.n_kv, c.head_dim, 100),
+            "granite": k3(1, 4096, 32, 8, 64, 20)},
+        "flash_decode": {
+            # the last decode step's cache length
+            "lm": k4(lm_batch, c.s_max, lm_prompt + lm_gen - 1, c.n_heads,
+                     c.n_kv, c.head_dim, 100),
+            "granite": k4(8, 32768, 32768, 32, 8, 64, 20)},
+    }
+    for name, shapes in out.items():
+        for where, t in shapes.items():
+            log(f"{name} {where} {t['shape']}: {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f}, sdpa {t['library_ms']:.4f}, bound "
+                f"{t['bound_ms']:.4f} ({t['bound_by']})")
+    return out
+
+
 def time_slice(tr) -> dict:
     """Wall time of one epoch's training steps and of one clustered
     federation round, each ending in a device synchronize."""
@@ -334,35 +625,45 @@ def time_slice(tr) -> dict:
             "clustered_round_s": t2 - t1}
 
 
-def profile_epoch(tr) -> dict:
-    """One epoch's training steps under torch.profiler: device busy
-    share (kernel time over wall time), kernels per step, and the
-    kernels that take the most device time."""
-    import numpy as np
+def device_profile(fn, per: int = 1, top_n: int = 6) -> dict:
+    """``fn`` once under torch.profiler: wall time, device busy time and
+    share (kernel time over wall time), kernel launches, and the kernels
+    that take the most device time; launches and times in the list are
+    per ``per`` (e.g. per training step)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    steps = max(1, int(np.median(tr.sizes)) // tr.cfg.batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tr.train_steps(steps)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in dev)
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
-    return {"steps": steps, "wall_s": wall, "device_busy_s": busy_us / 1e6,
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:top_n]
+    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "busy_share": busy_us / 1e6 / wall,
-            "kernels_per_step": sum(e.count for e in dev) / steps,
-            "top": [(e.key[:70], e.self_device_time_total / 1e3 / steps,
-                     e.count // steps) for e in top]}
+            "kernels": sum(e.count for e in dev) / per,
+            "top": [(e.key[:70], e.self_device_time_total / 1e3 / per,
+                     e.count // per) for e in top]}
+
+
+def profile_epoch(tr) -> dict:
+    """One epoch's training steps under torch.profiler (kernels and the
+    top list per step)."""
+    import numpy as np
+    steps = max(1, int(np.median(tr.sizes)) // tr.cfg.batch)
+    prof = device_profile(lambda: tr.train_steps(steps), per=steps)
+    prof["kernels_per_step"] = prof.pop("kernels")
+    return {"steps": steps, **prof}
 
 
 def main() -> int:
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         log("no CUDA device: this smoke test runs on an NVIDIA GPU")
         return 2
@@ -370,6 +671,8 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import kmeans_assign as km
     from repro_torch.kernels import weighted_agg as wa
+    from repro_torch.launch.serve_split import SplitLMConfig
+    from repro_torch.launch.serve_split import main as serve_main
     from repro_torch.launch.train import main as train_main
 
     smi = subprocess.run(
@@ -405,9 +708,30 @@ def main() -> int:
 
     check_slice(tr)
     check_cpu_agreement()
+    gan_serve = check_gan_serving(serve_main)
+    lm_serve = check_lm_serving(serve_main)
     kernels = check_kernels(tr)
     for k in kernels:
         k["launches"] = counts[k["name"]]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    attn_err = check_attention(gen)
+    lm_cfg = SplitLMConfig(s_max=lm_serve["prompt"] + lm_serve["gen"] + 16)
+    attn_times = time_attention(gen, lm_cfg, lm_serve["batch"],
+                                lm_serve["prompt"], lm_serve["gen"])
+    for name, replaces in (("mem_attention",
+                            "src/repro/kernels/mem_attention.py:82"),
+                           ("flash_decode",
+                            "src/repro/kernels/flash_decode.py:70")):
+        t = attn_times[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
+            "launches": lm_serve["launches"][name],
+            "max_abs_err": attn_err[name],
+            **{key: t["lm"][key] for key in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms",
+                                             "shape")},
+            "granite": t["granite"]})
     timing = time_slice(tr)
     timing["profile"] = profile_epoch(tr)
     timing.update({"slice_s": slice_s,
@@ -416,10 +740,13 @@ def main() -> int:
                    "k1_D": {p.net: p.n_cols for p in tr._fed_plans.values()},
                    "rounds": [d["mode"] for d in tr.fed_log]})
     print(json.dumps({"slice": timing}), flush=True)
+    print(json.dumps({"serve": {"gan": gan_serve, "lm": lm_serve}}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    log(f"total {time.perf_counter() - t_start:.1f}s")
     return 0
 
 

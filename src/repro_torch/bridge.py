@@ -12,7 +12,11 @@ the parameters they belong to.
 
 ``state_from_numpy`` takes the reference's state as numpy arrays
 (``jax.tree_util.tree_map(np.asarray, state)``); ``state_to_numpy`` gives
-that form back.
+that form back. The GAN serving engine's state has the trainer's layout
+and converts the same way.
+
+``split_lm_from_numpy`` takes the split LM's parameters
+(``{"embed", "blocks": [...], "norm_f"}``), whose layouts the port keeps.
 """
 from __future__ import annotations
 
@@ -72,6 +76,17 @@ def state_from_numpy(tree: Any, device="cpu", path: Tuple[str, ...] = ()
         return int(a)                            # step counters
     a = np.ascontiguousarray(_hwio_to_port(a, _kind(path)))
     return torch.tensor(a, device=device)
+
+
+def split_lm_from_numpy(params: Any, device="cpu") -> Any:
+    """The reference's split-LM parameters (numpy leaves) -> the port's,
+    on ``device``; the block list stays a list."""
+    if isinstance(params, dict):
+        return {k: split_lm_from_numpy(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [split_lm_from_numpy(v, device) for v in params]
+    return torch.tensor(np.ascontiguousarray(params), dtype=torch.float32,
+                        device=device)
 
 
 def state_to_numpy(tree: Any, path: Tuple[str, ...] = ()) -> Any:

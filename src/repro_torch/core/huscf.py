@@ -11,15 +11,17 @@ Stages 3 and 4 run on the device; with ``use_kernel`` (the default
 here) the assignment step of k-means is kernel K2 and every
 aggregation is kernel K1.
 
+``generate`` runs the generator's split program in eval mode.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP item: cohorts, chunked aggregation, online re-cut and churn,
 mesh-sharded federation, the host clustering path
-(``fused_cluster=False``), label-histogram KLD and ``generate``.
+(``fused_cluster=False``) and label-histogram KLD.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -144,6 +146,9 @@ class HuSCFTrainer:
             torch.Generator().manual_seed(config.seed))
         self._dataset = stage_clients(self.groups, self.clients, self.device)
         self._batch_source = batch_source
+        # generate()'s latent draws: numpy, seeded as in the reference, so
+        # one state gives the reference's images
+        self._rng = np.random.default_rng(config.seed + 1)
         self._train_gen = self._generator(config.seed + 1)
         self._cluster_gen = self._generator(config.seed + 2)
         self._mid_ema = torch.zeros((K, DISC_MIDDLE_FEATURES),
@@ -355,6 +360,49 @@ class HuSCFTrainer:
 
     apply_churn = update_profile = reoptimize_cuts
 
-    def generate(self, *args, **kwargs):
-        raise NotImplementedError("generation is not ported yet (ROADMAP "
-                                  "M8a)")
+    # -- generation for evaluation ------------------------------------------
+    def generate(self, n_per_client_batch: int, labels: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """Generate len(labels) images by cycling clients: ([N, 28, 28, 1]
+        images, [N] labels), with the generator's split program in eval
+        mode."""
+        labels = np.asarray(labels)
+        n_total = len(labels)
+        g_params = self.state["G"]
+        imgs_all, labels_all = [], []
+        pos = 0
+        while pos < n_total:
+            # each group consumes the next contiguous label chunk (a
+            # shared cursor: groups never recycle each other's labels);
+            # only the final partial chunk pads, and the padding is
+            # sliced off below
+            inputs, ys = {}, {}
+            cursor = pos
+            for g in self.groups:
+                need = min(n_per_client_batch, max(1, (n_total - pos)
+                                                   // max(1, g.size)))
+                cnt = g.size * need
+                chunk = labels[cursor:cursor + cnt]
+                if chunk.shape[0] < cnt:
+                    chunk = np.concatenate(
+                        [chunk, np.zeros(cnt - chunk.shape[0],
+                                         labels.dtype)])
+                cursor += cnt
+                z = self._rng.normal(0, 1, (g.size, need, Z_DIM)
+                                     ).astype(np.float32)
+                ys[g.name] = chunk.reshape(g.size, need).astype(np.int32)
+                inputs[g.name] = (torch.as_tensor(z, device=self.device),
+                                  torch.as_tensor(ys[g.name],
+                                                  device=self.device))
+            with torch.no_grad():
+                out, _, _, _ = self._gen_apply(g_params["client"],
+                                               g_params["server"], inputs,
+                                               False)
+            for g in self.groups:
+                imgs_all.append(out[g.name].reshape(-1, 28, 28, 1).cpu()
+                                .numpy())
+                labels_all.append(ys[g.name].reshape(-1))
+            pos = cursor
+        imgs = np.concatenate(imgs_all)[:n_total]
+        labs = np.concatenate(labels_all)[:n_total]
+        return imgs, labs

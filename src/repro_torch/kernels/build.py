@@ -28,6 +28,10 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "clustered_agg": ("clustered_agg_f32", [_P, _P, _P, _I, _I, _LL, _I, _P]),
     "kmeans_assign": ("kmeans_assign_f32", [_P, _P, _P, _I, _I, _I, _P]),
+    "mem_attention": ("mem_attention_f32",
+                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "flash_decode": ("flash_decode_f32",
+                     [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _loaded: Dict[str, object] = {}

@@ -1,10 +1,15 @@
 """Public entry points of the kernels (port of ``repro.kernels.ops``).
-The federation round and the clustering stage call these."""
+The federation round and the clustering stage call the first two, the
+split-serving LM the attention pair."""
 from __future__ import annotations
+
+from typing import Union
 
 import torch
 
+from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import kmeans_assign as _km
+from repro_torch.kernels import mem_attention as _ma
 from repro_torch.kernels import weighted_agg as _wa
 
 
@@ -22,3 +27,31 @@ def clustered_agg(weights: torch.Tensor, stacked: torch.Tensor
 def kmeans_assign(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     """x [N, D], centers [M, D] -> labels [N] int32."""
     return _km.kmeans_assign(x, centers)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 cache_len: Union[int, torch.Tensor]) -> torch.Tensor:
+    """q [B, H, hd], k/v [B, S, KV, hd], cache_len a scalar (Python int
+    or one-element int32 tensor) -> [B, H, hd]."""
+    if isinstance(cache_len, torch.Tensor) and q.device.type == "cuda":
+        cache_len = cache_len.to(device=q.device, dtype=torch.int32)
+    return _fd.flash_decode(q.contiguous(), k.contiguous(), v.contiguous(),
+                            cache_len)
+
+
+def mem_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  lens: Union[int, torch.Tensor], causal: bool = True
+                  ) -> torch.Tensor:
+    """Memory-efficient prefill attention: q [B, S, H, hd], k/v [B, S, KV,
+    hd], lens [B] or a scalar -> [B, S, H, hd], never building the [S, S]
+    scores on the card."""
+    if q.device.type == "cuda":
+        B = q.shape[0]
+        if isinstance(lens, torch.Tensor):
+            lens = lens.to(device=q.device, dtype=torch.int32).reshape(-1)
+            lens = lens.expand(B).contiguous()
+        else:
+            lens = torch.full((B,), int(lens), dtype=torch.int32,
+                              device=q.device)
+    return _ma.mem_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             lens, causal=causal)

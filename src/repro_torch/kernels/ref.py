@@ -1,9 +1,13 @@
-"""Plain PyTorch versions of the kernels (port of ``repro.kernels.ref``,
-the two the training path uses). The wrappers take them for tensors on
-the CPU; on the card they are what each kernel is checked against."""
+"""Plain PyTorch versions of the kernels (port of ``repro.kernels.ref``).
+The wrappers take them for tensors on the CPU; on the card they are what
+each kernel is checked against."""
 from __future__ import annotations
 
+import math
+
 import torch
+
+NEG_INF = -1e30         # the masked-score fill of the reference (not -inf)
 
 
 def clustered_agg_ref(weights: torch.Tensor, stacked: torch.Tensor
@@ -23,3 +27,48 @@ def kmeans_assign_ref(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     d2 = ((x * x).sum(-1)[:, None] - 2.0 * x @ c.T
           + (c * c).sum(-1)[None, :])
     return torch.argmin(d2, dim=1).to(torch.int32)
+
+
+def _lens_vector(lens, B: int, device) -> torch.Tensor:
+    if isinstance(lens, torch.Tensor):
+        return lens.to(device=device, dtype=torch.int64).reshape(-1).expand(B)
+    return torch.full((B,), int(lens), dtype=torch.int64, device=device)
+
+
+def mem_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      lens, causal: bool = True) -> torch.Tensor:
+    """Full prefill GQA attention with dense float32 scores: q [B, S, H,
+    hd], k/v [B, S, KV, hd], lens [B] or a scalar (keys at or past a row's
+    length are masked) -> [B, S, H, hd]. Query head h reads kv head
+    h // (H // KV)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qh = q.reshape(B, S, KV, G, hd).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qh, k.float()) / math.sqrt(hd)
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, :] < _lens_vector(lens, B, q.device)[:, None]
+    mask = mask[:, None, None, None, :]
+    if causal:
+        mask = mask & (pos[None, :] <= pos[:, None])[None, None, None]
+    p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cache_len) -> torch.Tensor:
+    """One query token against a KV cache: q [B, H, hd], k/v [B, S, KV,
+    hd], cache_len a scalar (int or one-element tensor); positions at or
+    past it are masked -> [B, H, hd]."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qh = q.reshape(B, KV, G, hd).float()
+    s = torch.einsum("bkgh,bskh->bkgs", qh, k.float()) / math.sqrt(hd)
+    clen = (cache_len.to(q.device).reshape(()) if isinstance(
+        cache_len, torch.Tensor) else int(cache_len))
+    valid = torch.arange(S, device=q.device) < clen
+    p = torch.softmax(s.masked_fill(~valid, NEG_INF), dim=-1)
+    o = torch.einsum("bkgs,bskh->bkgh", p, v.float())
+    return o.reshape(B, H, hd).to(q.dtype)

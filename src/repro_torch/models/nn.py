@@ -1,5 +1,5 @@
-"""Layers of the Table-3 cGAN in PyTorch (port of ``repro.models.nn``,
-the subset the GAN uses).
+"""Layers of the Table-3 cGAN and of the split LM in PyTorch (port of
+``repro.models.nn``, the subset those two use).
 
 Parameters are plain nested dicts of tensors. Every parameter carries a
 leading copy axis ``K`` and every activation a leading ``[K, b]`` pair:
@@ -12,6 +12,10 @@ kept as ``[K, O, I, kh, kw]``; transposed-conv kernels as
 ``[K, I, O, kh, kw]`` already flipped in space, i.e. ready for
 ``F.conv_transpose2d``. ``repro_torch.bridge`` converts from and to
 the reference's HWIO kernels.
+
+The split LM's layers (``linear_*``, ``rmsnorm_*``, ``gelu``) are
+single copies with the reference's layouts: a dense weight is
+``[in, out]``, an RMSNorm scale ``[dim]``.
 
 Initialisers draw on the CPU from the caller's ``torch.Generator`` and
 then move to ``device``, so a seed gives the same weights on every
@@ -42,6 +46,17 @@ def dense_init(n: int, in_dim: int, out_dim: int, gen, device) -> Params:
     w = torch.rand((n, in_dim, out_dim), generator=gen) * (2 * limit) - limit
     return {"w": w.to(device),
             "b": torch.zeros((n, out_dim), device=device)}
+
+
+def linear_init(in_dim: int, out_dim: int, gen, device) -> Params:
+    """A single-copy dense layer (Glorot-uniform weight, zero bias)."""
+    limit = math.sqrt(6.0 / (in_dim + out_dim))
+    w = torch.rand((in_dim, out_dim), generator=gen) * (2 * limit) - limit
+    return {"w": w.to(device), "b": torch.zeros((out_dim,), device=device)}
+
+
+def rmsnorm_init(dim: int, device) -> Params:
+    return {"scale": torch.ones((dim,), device=device)}
 
 
 def embedding_init(n: int, vocab: int, dim: int, gen, device) -> Params:
@@ -77,6 +92,11 @@ def batchnorm_init(n: int, ch: int, device) -> Params:
 def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     """x [K, b, in] @ w [K, in, out] + b [K, out]."""
     return torch.bmm(x, p["w"]) + p["b"][:, None, :]
+
+
+def linear_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x [..., in] @ w [in, out] + b [out]."""
+    return x @ p["w"] + p["b"]
 
 
 def embedding_apply(p: Params, ids: torch.Tensor) -> torch.Tensor:
@@ -181,3 +201,17 @@ def batchnorm_apply(p: Params, x: torch.Tensor, *, train: bool,
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     return torch.where(x >= 0, x, slope * x)
+
+
+def rmsnorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6
+                  ) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * scale over the last axis, in float32."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation, which ``jax.nn.gelu`` takes by default
+    (PyTorch's default is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
