@@ -31,8 +31,8 @@ Phases (any failure exits non-zero and prints no result):
   7. holds K1 (clustered_agg) and K2 (kmeans_assign) against their plain
      PyTorch versions at the slice's shapes, plus ragged and tied cases,
      and K3 (mem_attention) and K4 (flash_decode) over head dims, GQA
-     groups, ragged lengths and masks, up to the granite-3-2b attention
-     shapes;
+     groups, ragged lengths and masks, from the split LM's own shapes
+     and cache lengths up to the granite-3-2b attention shapes;
   8. times each kernel, its plain version and the one PyTorch call that
      computes the same function (torch.matmul for K1,
      scaled_dot_product_attention for K3/K4), K3/K4 at the LM's shape
@@ -500,15 +500,22 @@ def check_attention(gen) -> float:
                            f"S={S} hd={hd} G={G} causal={causal}")
     for S in (64, 1000, 32768):
         for hd in (16, 64, 128):
-            q, k, v = rand(2, 8, hd), rand(2, S, 2, hd), rand(2, S, 2, hd)
-            for clen in (1, S - 7, S):
-                want = flash_decode_ref(q, k, v, clen)
-                for length in (clen, torch.tensor(clen, dtype=torch.int32,
-                                                  device=dev)):
-                    got = fd.flash_decode(q, k, v, length)
-                    torch.cuda.synchronize()
-                    record("flash_decode", float((got - want).abs().max()),
-                           f"S={S} hd={hd} cache_len={clen}")
+            for G in (1, 2, 4):
+                KV = 2
+                q, k, v = rand(2, KV * G, hd), rand(2, S, KV, hd), \
+                    rand(2, S, KV, hd)
+                # at S=64, hd=16, G=2 the cache lengths 33 and 47 are the
+                # split LM's first and last decode steps
+                clens = (1, 33, 47, S - 7, S) if S == 64 else (1, S - 7, S)
+                for clen in clens:
+                    want = flash_decode_ref(q, k, v, clen)
+                    for length in (clen, torch.tensor(
+                            clen, dtype=torch.int32, device=dev)):
+                        got = fd.flash_decode(q, k, v, length)
+                        torch.cuda.synchronize()
+                        record("flash_decode",
+                               float((got - want).abs().max()),
+                               f"S={S} hd={hd} G={G} cache_len={clen}")
     # corrupting K/V at or past the length changes no valid output
     q, k, v = rand(2, 48, 4, 16), rand(2, 48, 2, 16), rand(2, 48, 2, 16)
     lens = torch.tensor([30, 17], dtype=torch.int32, device=dev)

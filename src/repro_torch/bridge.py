@@ -25,6 +25,7 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.optim.optimizers import AdamState
 
 
@@ -62,9 +63,10 @@ def _is_adam(x) -> bool:
     return all(hasattr(x, f) for f in ("step", "mu", "nu"))
 
 
-def state_from_numpy(tree: Any, device="cpu", path: Tuple[str, ...] = ()
+def state_from_numpy(tree: Any, device="cuda", path: Tuple[str, ...] = ()
                      ) -> Any:
     """Reference-layout numpy state -> port state on ``device``."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: state_from_numpy(v, device, path + (k,))
                 for k, v in tree.items()}
@@ -78,9 +80,10 @@ def state_from_numpy(tree: Any, device="cpu", path: Tuple[str, ...] = ()
     return torch.tensor(a, device=device)
 
 
-def split_lm_from_numpy(params: Any, device="cpu") -> Any:
+def split_lm_from_numpy(params: Any, device="cuda") -> Any:
     """The reference's split-LM parameters (numpy leaves) -> the port's,
     on ``device``; the block list stays a list."""
+    device = resolve_device(device)
     if isinstance(params, dict):
         return {k: split_lm_from_numpy(v, device) for k, v in params.items()}
     if isinstance(params, (list, tuple)):

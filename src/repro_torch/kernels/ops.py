@@ -40,18 +40,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def mem_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  lens: Union[int, torch.Tensor], causal: bool = True
-                  ) -> torch.Tensor:
+                  lens: torch.Tensor, causal: bool = True) -> torch.Tensor:
     """Memory-efficient prefill attention: q [B, S, H, hd], k/v [B, S, KV,
-    hd], lens [B] or a scalar -> [B, S, H, hd], never building the [S, S]
+    hd], lens [B] int32 -> [B, S, H, hd], never building the [S, S]
     scores on the card."""
-    if q.device.type == "cuda":
-        B = q.shape[0]
-        if isinstance(lens, torch.Tensor):
-            lens = lens.to(device=q.device, dtype=torch.int32).reshape(-1)
-            lens = lens.expand(B).contiguous()
-        else:
-            lens = torch.full((B,), int(lens), dtype=torch.int32,
-                              device=q.device)
     return _ma.mem_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                              lens, causal=causal)

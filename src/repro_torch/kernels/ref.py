@@ -29,17 +29,12 @@ def kmeans_assign_ref(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     return torch.argmin(d2, dim=1).to(torch.int32)
 
 
-def _lens_vector(lens, B: int, device) -> torch.Tensor:
-    if isinstance(lens, torch.Tensor):
-        return lens.to(device=device, dtype=torch.int64).reshape(-1).expand(B)
-    return torch.full((B,), int(lens), dtype=torch.int64, device=device)
-
-
 def mem_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      lens, causal: bool = True) -> torch.Tensor:
+                      lens: torch.Tensor, causal: bool = True
+                      ) -> torch.Tensor:
     """Full prefill GQA attention with dense float32 scores: q [B, S, H,
-    hd], k/v [B, S, KV, hd], lens [B] or a scalar (keys at or past a row's
-    length are masked) -> [B, S, H, hd]. Query head h reads kv head
+    hd], k/v [B, S, KV, hd], lens [B] int (keys at or past a row's length
+    are masked) -> [B, S, H, hd]. Query head h reads kv head
     h // (H // KV)."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
@@ -47,7 +42,7 @@ def mem_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qh = q.reshape(B, S, KV, G, hd).float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qh, k.float()) / math.sqrt(hd)
     pos = torch.arange(S, device=q.device)
-    mask = pos[None, :] < _lens_vector(lens, B, q.device)[:, None]
+    mask = pos[None, :] < lens.to(q.device)[:, None]
     mask = mask[:, None, None, None, :]
     if causal:
         mask = mask & (pos[None, :] <= pos[:, None])[None, None, None]

@@ -183,12 +183,13 @@ def _first_leaf(tree):
 
 def init_gan_serving_state(gen: torch.Generator,
                            groups: Sequence[ProfileGroup], net: str = "G",
-                           device="cpu"
+                           device="cuda"
                            ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Random split-cGAN weights in the trainer's state layout, drawn
     from ``gen`` (the engine normally serves a trained state; the
     launcher serves random weights, and latency does not depend on
-    them)."""
+    them). The engine serves wherever its weights are."""
+    device = resolve_device(device)
     defs = GEN_LAYER_DEFS if net == "G" else DISC_LAYER_DEFS
     n = len(defs)
     server = {str(l): tree_map(lambda t: t[0], defs[l].init(1, gen, device))
@@ -261,9 +262,11 @@ def _lm_block_init(cfg: SplitLMConfig, gen, device):
     }
 
 
-def init_split_lm(gen: torch.Generator, cfg: SplitLMConfig, device="cpu"):
+def init_split_lm(gen: torch.Generator, cfg: SplitLMConfig, device="cuda"):
     """Random LM weights in the reference's layout: {"embed" [V, d],
-    "blocks": [per-block trees], "norm_f"}."""
+    "blocks": [per-block trees], "norm_f"}. The LM runs wherever its
+    weights are."""
+    device = resolve_device(device)
     embed = (torch.randn((cfg.vocab, cfg.d_model), generator=gen) * 0.02
              ).to(device)
     return {"embed": embed,
@@ -311,9 +314,11 @@ def split_lm_prefill(cfg: SplitLMConfig, params, tokens: torch.Tensor):
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, device=x.device)
+    lens = torch.full((B,), S, dtype=torch.int32, device=x.device)
     caches = []
     for blk in params["blocks"]:
-        x, (k, v) = _lm_block_prefill(blk, x, positions, S, ops.mem_attention)
+        x, (k, v) = _lm_block_prefill(blk, x, positions, lens,
+                                      ops.mem_attention)
         ck = torch.zeros((B, cfg.s_max, cfg.n_kv, cfg.head_dim),
                          dtype=k.dtype, device=k.device)
         cv = torch.zeros_like(ck)
@@ -374,8 +379,10 @@ def lm_reference_logits(cfg: SplitLMConfig, params, tokens: torch.Tensor
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, device=x.device)
+    lens = torch.full((B,), S, dtype=torch.int32, device=x.device)
     for blk in params["blocks"]:
-        x, _ = _lm_block_prefill(blk, x, positions, S, ref.mem_attention_ref)
+        x, _ = _lm_block_prefill(blk, x, positions, lens,
+                                 ref.mem_attention_ref)
     x = nn.rmsnorm_apply(params["norm_f"], x)
     return x @ params["embed"].T
 

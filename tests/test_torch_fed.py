@@ -162,7 +162,7 @@ def test_aggregate_device_matches_reference(fed_setup, use_kernel):
         jnp.asarray(weights), jnp.asarray(labels), 3,
         n_layers={"G": 5, "D": 5}, use_kernel=use_kernel, plan_cache={})
     out_t = tfed.federate_client_params_device(
-        gt, state_from_numpy(wrapped), torch.from_numpy(weights),
+        gt, state_from_numpy(wrapped, "cpu"), torch.from_numpy(weights),
         torch.from_numpy(labels), 3, n_layers={"G": 5, "D": 5},
         use_kernel=use_kernel)
     _compare(out_t, out_j)
@@ -175,7 +175,7 @@ def test_fedavg_uniform_matches_reference(fed_setup):
                                                            wrapped),
                                 sizes, n_layers={"G": 5, "D": 5},
                                 use_kernel=True, plan_cache={})
-    out_t = tfed.fedavg_uniform(gt, state_from_numpy(wrapped), sizes,
+    out_t = tfed.fedavg_uniform(gt, state_from_numpy(wrapped, "cpu"), sizes,
                                 n_layers={"G": 5, "D": 5}, use_kernel=True)
     _compare(out_t, out_j)
 
@@ -189,7 +189,7 @@ def test_weight_segments_match_reference(fed_setup):
     for net in ("G", "D"):
         tpl_j = {g.name: wrapped[g.name][net] for g in gj}
         pj = jfed.FederationPlan(gj, net, 5, tpl_j)
-        pt = tfed.FederationPlan(gt, net, 5, state_from_numpy(tpl_j))
+        pt = tfed.FederationPlan(gt, net, 5, state_from_numpy(tpl_j, "cpu"))
         assert (pt.n_rows, pt.n_cols, pt.n_copies) == (
             pj.n_rows, pj.n_cols, pj.n_copies)
         A_j, s_j = pj.weight_segments(weights, labels)
@@ -201,8 +201,8 @@ def test_weight_segments_match_reference(fed_setup):
 def test_unported_round_options_raise(fed_setup):
     _, gt, wrapped = fed_setup
     with pytest.raises(NotImplementedError, match="chunked"):
-        tfed.fedavg_uniform(gt, state_from_numpy(wrapped), np.ones(6),
+        tfed.fedavg_uniform(gt, state_from_numpy(wrapped, "cpu"), np.ones(6),
                             chunk_size=2)
     with pytest.raises(NotImplementedError, match="cohort"):
-        tfed.fedavg_uniform(gt, state_from_numpy(wrapped), np.ones(6),
+        tfed.fedavg_uniform(gt, state_from_numpy(wrapped, "cpu"), np.ones(6),
                             cohort_mask=np.ones(6, bool))

@@ -161,14 +161,17 @@ def test_flash_decode_matches_pallas(B, S, H, KV, hd):
 def test_attention_plain_versions_take_int_or_tensor_lengths():
     q, k, v = (torch.from_numpy(a) for a in _attn_inputs(2, 24, 24, 4, 2, 16,
                                                          seed=9))
-    a = ops.mem_attention(q, k, v, 20)
-    b = ops.mem_attention(q, k, v, torch.tensor([20, 20], dtype=torch.int32))
-    assert torch.equal(a, b)
+    # causal rows before the length do not see the keys past it
+    lens = torch.tensor([20, 20], dtype=torch.int32)
+    a = ops.mem_attention(q, k, v, lens)[:, :20]
+    b = ops.mem_attention(q[:, :20], k[:, :20], v[:, :20], lens)
+    torch.testing.assert_close(a, b, atol=ATTN_TOL, rtol=ATTN_TOL)
     a = ops.flash_decode(q[:, 5], k, v, 11)
     b = ops.flash_decode(q[:, 5], k, v, torch.tensor(11, dtype=torch.int32))
     assert torch.equal(a, b)
     # causal prefill row t is one decode step against a t+1 row cache
-    full = ops.mem_attention(q, k, v, 24)
+    full = ops.mem_attention(q, k, v, torch.tensor([24, 24],
+                                                   dtype=torch.int32))
     for t in (0, 7, 23):
         torch.testing.assert_close(ops.flash_decode(q[:, t], k, v, t + 1),
                                    full[:, t], atol=ATTN_TOL, rtol=ATTN_TOL)
@@ -208,13 +211,15 @@ def test_mem_attention_kernel_on_card(cuda, hd, G, S, causal):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4])
 @pytest.mark.parametrize("S", [64, 1000])
-def test_flash_decode_kernel_on_card(cuda, hd, S):
-    B, H, KV = 2, 8, 2
+def test_flash_decode_kernel_on_card(cuda, hd, G, S):
+    B, KV = 2, 2
     q, k, v = (torch.from_numpy(a).to(cuda) for a in _attn_inputs(
-        B, 1, S, H, KV, hd, seed=hd + S))
+        B, 1, S, KV * G, KV, hd, seed=hd + G + S))
     q = q[:, 0].contiguous()
-    for clen in (1, S - 7, S):
+    # 33 and 47: the cache lengths the split LM's decode loop gives
+    for clen in (1, 33, 47, S - 7, S):
         for length in (clen, torch.tensor(clen, dtype=torch.int32,
                                           device=cuda)):
             before = fd.launches

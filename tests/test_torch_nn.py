@@ -66,7 +66,7 @@ def test_convT2d_matches_lax_conv_transpose(k, s):
         lambda p, xx: jnp.sum(jax.vmap(jax_fn)(p, xx) * r),
         argnums=(0, 1)))(jp, jx)
 
-    tp = state_from_numpy({"convt": params})["convt"]
+    tp = state_from_numpy({"convt": params}, "cpu")["convt"]
     tp = {n: v.requires_grad_(True) for n, v in tp.items()}
     tx = torch.from_numpy(x).requires_grad_(True)
     y_t = tnn.convT2d_apply(tp, tx, stride=s)
@@ -98,7 +98,7 @@ def test_conv2d_same_padding_matches_xla(size, k, s):
         lambda p, xx: jnp.sum(jax.vmap(jax_fn)(p, xx) * r),
         argnums=(0, 1)))(jp, jx)
 
-    tp = state_from_numpy({"conv": params})["conv"]
+    tp = state_from_numpy({"conv": params}, "cpu")["conv"]
     tp = {n: v.requires_grad_(True) for n, v in tp.items()}
     tx = torch.from_numpy(x).requires_grad_(True)
     y_t = tnn.conv2d_apply(tp, tx, stride=s)
@@ -173,7 +173,7 @@ def test_gan_layer_matches_reference(net, layer):
         y_j, new_j = jax.jit(jax.vmap(
             lambda p, a: jdefs[layer][1](p, a, True)))(jp, jnp.asarray(x))
         tx = torch.from_numpy(x)
-    y_t, new_t = tdefs[layer].apply(state_from_numpy(_np(jp)), tx, True)
+    y_t, new_t = tdefs[layer].apply(state_from_numpy(_np(jp), "cpu"), tx, True)
     _close(y_t.numpy(), y_j)
     want = _np(new_j)
     got = state_to_numpy(new_t)
@@ -204,11 +204,11 @@ def test_adam_matches_reference():
     j_init, j_upd = jadam(2e-4, b1=0.5)
     t_init, t_upd = tadam(2e-4, b1=0.5)
     jp = jax.tree_util.tree_map(jnp.asarray, params)
-    tp = state_from_numpy(params)
+    tp = state_from_numpy(params, "cpu")
     js, ts = j_init(jp), t_init(tp)
     for g in grads:
         js, jp = j_upd(js, jax.tree_util.tree_map(jnp.asarray, g), jp)
-        ts, tp = t_upd(ts, state_from_numpy(g), tp)
+        ts, tp = t_upd(ts, state_from_numpy(g, "cpu"), tp)
     assert ts.step == int(js.step) == 3
     _close(tp["a"]["w"].numpy(), jp["a"]["w"], tol=1e-7)
     _close(tp["b"].numpy(), jp["b"], tol=1e-7)

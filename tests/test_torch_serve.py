@@ -31,7 +31,8 @@ from repro.core import splitting as jsplit  # noqa: E402
 from repro.launch import serve_split as jss  # noqa: E402
 from repro.models import attention as jA  # noqa: E402
 from repro.models import nn as jnn  # noqa: E402
-from repro_torch.bridge import split_lm_from_numpy, state_to_numpy  # noqa: E402
+from repro_torch.bridge import (split_lm_from_numpy, state_from_numpy,  # noqa: E402
+                                state_to_numpy)
 from repro_torch.core import huscf as thuscf  # noqa: E402
 from repro_torch.core import latency as tlat  # noqa: E402
 from repro_torch.data import partition as tpart  # noqa: E402
@@ -104,7 +105,7 @@ def lm():
     oracle = np.asarray(jax.jit(lambda p, t: jss.lm_reference_logits(
         cfg, p, t))(jparams, jnp.asarray(toks)))
     tcfg = tss.SplitLMConfig(s_max=48)
-    return tcfg, split_lm_from_numpy(_np(jparams)), toks, P, want, oracle
+    return tcfg, split_lm_from_numpy(_np(jparams), "cpu"), toks, P, want, oracle
 
 
 def test_split_lm_decode_logits_match_reference(lm):
@@ -133,7 +134,7 @@ def test_split_lm_generate_greedy_consistency(lm):
 
 def test_split_lm_init_layout_matches_reference():
     cfg = tss.SplitLMConfig()
-    ours = tss.init_split_lm(torch.Generator().manual_seed(0), cfg)
+    ours = tss.init_split_lm(torch.Generator().manual_seed(0), cfg, "cpu")
     theirs = _np(jss.init_split_lm(jax.random.PRNGKey(0), jss.SplitLMConfig()))
     assert len(ours["blocks"]) == len(theirs["blocks"]) == cfg.n_layers
     flat_o = jax.tree_util.tree_leaves_with_path(
@@ -163,7 +164,7 @@ def engines(request):
     mix = request.param
     tgroups = tss.build_mix(mix)
     client, server = tss.init_gan_serving_state(
-        torch.Generator().manual_seed(0), tgroups)
+        torch.Generator().manual_seed(0), tgroups, device="cpu")
     _randomize_bn_stats((client, server), seed=1)
     teng = tss.SplitGanEngine(tgroups, client, server)
     jeng = jss.SplitGanEngine(jss.build_mix(mix),
@@ -235,7 +236,7 @@ def test_gan_padding_rows_cannot_touch_valid_rows(engines):
 def test_gan_subset_cohort_drops_absent_cuts():
     groups = tss.build_mix("balanced")
     client, server = tss.init_gan_serving_state(
-        torch.Generator().manual_seed(0), groups)
+        torch.Generator().manual_seed(0), groups, device="cpu")
     eng = tss.SplitGanEngine(groups, client, server)
     g0 = groups[0]
     req = tss.ServeRequest(g0.client_ids[0], np.zeros(tgan.Z_DIM, np.float32),
@@ -312,3 +313,20 @@ def test_cli_defaults_to_cuda():
         pytest.skip("a GPU is present: the default device works")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tss.main(["--mode", "lm"])
+
+
+def test_serving_constructors_default_to_cuda():
+    """Weights built or converted without naming a device go to the
+    card, or the call raises: the engines run wherever their weights
+    are."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tss.init_split_lm(gen, tss.SplitLMConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tss.init_gan_serving_state(gen, tss.build_mix("balanced"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        split_lm_from_numpy({"embed": np.zeros((4, 2), np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        state_from_numpy({"b": np.zeros(3, np.float32)})

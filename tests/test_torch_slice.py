@@ -81,7 +81,7 @@ def runs():
     port = thuscf.HuSCFTrainer(clients_t, devices_t, cuts=cuts_t,
                                config=thuscf.HuSCFConfig(**cfg),
                                device="cpu", batch_source=source)
-    port.state = state_from_numpy(_np(ref.state))
+    port.state = state_from_numpy(_np(ref.state), "cpu")
 
     snaps = []
     for epoch in range(2):

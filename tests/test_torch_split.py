@@ -155,7 +155,7 @@ def test_split_executor_matches_reference(net):
         {k: tuple(map(jnp.asarray, v)) for k, v in inputs.items()}, True)
     out_t, nc_t, ns_t, mid_t = tseg.make_apply(
         tseg.compile_split_program(gt, net), capture_middle=capture)(
-        state_from_numpy(client), state_from_numpy(server),
+        state_from_numpy(client, "cpu"), state_from_numpy(server, "cpu"),
         {k: tuple(map(torch.from_numpy, v)) for k, v in inputs.items()},
         True)
     for g in gj:
