@@ -30,13 +30,17 @@ Phases (any failure exits non-zero and prints no result):
      is profiled;
   7. holds K1 (clustered_agg) and K2 (kmeans_assign) against their plain
      PyTorch versions at the slice's shapes, plus ragged and tied cases,
-     and K3 (mem_attention) and K4 (flash_decode) over head dims, GQA
-     groups, ragged lengths and masks, from the split LM's own shapes
-     and cache lengths up to the granite-3-2b attention shapes;
+     and K3 (mem_attention) and K4 (flash_decode) over head dims 8-256,
+     GQA groups, ragged lengths and masks, K4 also at the cache lengths
+     around its split boundaries and below its split count, from the
+     split LM's own shapes and cache lengths up to the granite-3-2b
+     attention shapes;
   8. times each kernel, its plain version and the one PyTorch call that
      computes the same function (torch.matmul for K1,
-     scaled_dot_product_attention for K3/K4), K3/K4 at the LM's shape
-     and at the granite-3-2b shape, then one epoch and one clustered
+     scaled_dot_product_attention for K3/K4, for K4 at a full cache also
+     without a mask), K3/K4 at the LM's shape (with the device time per
+     launch from torch.profiler) and at the granite-3-2b shapes (K4 at
+     batch 8 and 1), then one epoch and one clustered
      round of the slice's trainer, and profiles one epoch (device busy
      share, the kernels that take the time);
   9. prints a JSON line with the slice's times, one with the serving
@@ -56,6 +60,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 PEAK_FP32_FLOPS = 67e12        # H100 SXM float32, outside the tensor cores
+PEAK_TF32_FLOPS = 495e12       # H100 SXM TF32 tensor cores, dense
 # kernel vs plain version: both accumulate K float32 products in
 # different orders (an FMA chain vs the library's tiling), so they may
 # differ by a few ulps of the sum; 1e-5 relative to the output scale
@@ -92,10 +97,30 @@ def time_ms(fn, iters: int = 100, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ms_per_launch(fn, key: str, n: int = 50):
+    """Device time of one launch of the kernels whose name holds ``key``,
+    from torch.profiler over ``n`` calls of ``fn`` (None when the trace
+    shows no such kernel)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and key in e.key]
+    count = sum(e.count for e in ev)
+    return (sum(e.self_device_time_total for e in ev) / 1e3 / count
+            if count else None)
 
 
 def all_finite(tree) -> bool:
@@ -473,7 +498,9 @@ def check_attention(gen) -> float:
     import torch
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import mem_attention as ma
-    from repro_torch.kernels.ref import flash_decode_ref, mem_attention_ref
+    from repro_torch.kernels.ref import (flash_decode_ref,
+                                         flash_decode_split_ref,
+                                         mem_attention_ref)
     dev = torch.device("cuda")
 
     def rand(*shape):
@@ -485,8 +512,9 @@ def check_attention(gen) -> float:
             raise AssertionError(f"{name} disagrees at {what}: {err}")
         worst[name] = max(worst[name], err)
 
+    # hd 8 to 256; S = 37 and 300 are not multiples of the tiles
     for S in (37, 128, 300, 4096):
-        for hd in (16, 64, 128):
+        for hd in (8, 16, 64, 128, 256):
             for G in (1, 2, 4):
                 KV = 2
                 q, k, v = rand(2, S, KV * G, hd), rand(2, S, KV, hd), \
@@ -498,16 +526,21 @@ def check_attention(gen) -> float:
                     torch.cuda.synchronize()
                     record("mem_attention", _valid_err(got, want, lens),
                            f"S={S} hd={hd} G={G} causal={causal}")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for S in (64, 1000, 32768):
-        for hd in (16, 64, 128):
+        for hd in (8, 16, 64, 128, 256):
             for G in (1, 2, 4):
                 KV = 2
                 q, k, v = rand(2, KV * G, hd), rand(2, S, KV, hd), \
                     rand(2, S, KV, hd)
-                # at S=64, hd=16, G=2 the cache lengths 33 and 47 are the
-                # split LM's first and last decode steps
-                clens = (1, 33, 47, S - 7, S) if S == 64 else (1, S - 7, S)
-                for clen in clens:
+                # lengths on the split boundaries and below the split
+                # count; at S=64, hd=16, G=2 the cache lengths 33 and 47
+                # are the split LM's first and last decode steps
+                n = fd.decode_splits(2, KV, S, n_sm)
+                clens = set(fd.split_boundary_lengths(S, n))
+                if S == 64:
+                    clens |= {33, 47}
+                for clen in sorted(clens):
                     want = flash_decode_ref(q, k, v, clen)
                     for length in (clen, torch.tensor(
                             clen, dtype=torch.int32, device=dev)):
@@ -516,6 +549,19 @@ def check_attention(gen) -> float:
                         record("flash_decode",
                                float((got - want).abs().max()),
                                f"S={S} hd={hd} G={G} cache_len={clen}")
+                # an empty cache gives zeros, as the TPU kernel and the
+                # split twin do
+                zero = torch.tensor(0, dtype=torch.int32, device=dev)
+                if not torch.equal(fd.flash_decode(q, k, v, zero),
+                                   torch.zeros_like(q)):
+                    raise AssertionError(f"K4 at cache_len 0 (S={S} hd={hd} "
+                                         f"G={G}) is not zero")
+                for clen in (0, 1, n - 1, S):
+                    record("flash_decode", float((
+                        flash_decode_split_ref(q, k, v, clen, n)
+                        - (flash_decode_ref(q, k, v, clen) if clen else 0.0)
+                        ).abs().max()),
+                        f"split twin S={S} hd={hd} G={G} cache_len={clen}")
     # corrupting K/V at or past the length changes no valid output
     q, k, v = rand(2, 48, 4, 16), rand(2, 48, 2, 16), rand(2, 48, 2, 16)
     lens = torch.tensor([30, 17], dtype=torch.int32, device=dev)
@@ -527,6 +573,13 @@ def check_attention(gen) -> float:
     if not torch.equal(fd.flash_decode(q[:, 3].contiguous(), k, v, 17),
                        fd.flash_decode(q[:, 3].contiguous(), k2, v2, 17)):
         raise AssertionError("K4 reads cache rows past cache_len")
+    # the same over a cache split across blocks
+    q, k, v = rand(2, 4, 16), rand(2, 4096, 2, 16), rand(2, 4096, 2, 16)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 1000:], v2[:, 1000:] = 55.0, -55.0
+    if not torch.equal(fd.flash_decode(q, k, v, 1000),
+                       fd.flash_decode(q, k2, v2, 1000)):
+        raise AssertionError("K4 reads cache rows past cache_len when split")
     log(f"K3/K4 vs plain: worst max abs err {worst} (tolerance {ATTN_TOL})")
     return worst
 
@@ -536,7 +589,12 @@ def time_attention(gen, lm_cfg, lm_batch: int, lm_prompt: int,
     """K3 and K4 against their plain versions and one
     scaled_dot_product_attention call, at the LM's shapes and at the
     granite-3-2b attention shapes (H 32, KV 8, hd 64: K3 at B 1, S 4096,
-    causal; K4 at B 8 over 32768 cached positions)."""
+    causal; K4 at B 8 and B 1 over 32768 cached positions). At the LM
+    shapes the CUDA-event loop measures how fast the host issues calls,
+    so each kernel's device time per launch is also read from
+    torch.profiler. K3's bound is that of its route, 3xTF32 on the
+    tensor cores (three TF32 products per product); the float32 FMA
+    bound stands beside it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as fd
@@ -561,17 +619,23 @@ def time_attention(gen, lm_cfg, lm_batch: int, lm_prompt: int,
         lib_err = float((lib().transpose(1, 2)
                          - mem_attention_ref(q, k, v, lens)).abs().max())
         pairs = B * S * (S + 1) / 2
-        b_ms, b_by = bound(4.0 * (2 * B * S * H * hd + 2 * B * S * KV * hd + B),
-                           4.0 * hd * H * pairs)
+        nbytes = 4.0 * (2 * B * S * H * hd + 2 * B * S * KV * hd + B)
+        flops = 4.0 * hd * H * pairs
+        b_ms, b_by = bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)
         return {"shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
                           "causal": True},
                 "ms": time_ms(lambda: ma.mem_attention(q, k, v, lens),
                               iters=iters),
+                "device_ms": device_ms_per_launch(
+                    lambda: ma.mem_attention(q, k, v, lens),
+                    "mem_attention_kernel"),
                 "plain_ms": time_ms(lambda: mem_attention_ref(q, k, v, lens),
                                     iters=iters),
                 "library_ms": time_ms(lib, iters=iters),
                 "library_max_abs_diff": lib_err,
-                "bound_ms": b_ms, "bound_by": b_by}
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_route": "3xTF32 tensor cores",
+                "fma_bound_ms": bound(nbytes, flops)[0]}
 
     def k4(B, S, clen, H, KV, hd, iters):
         q, k, v = rand(B, H, hd), rand(B, S, KV, hd), rand(B, S, KV, hd)
@@ -585,15 +649,32 @@ def time_attention(gen, lm_cfg, lm_batch: int, lm_prompt: int,
                          - flash_decode_ref(q, k, v, clen)).abs().max())
         b_ms, b_by = bound(4.0 * (2 * B * H * hd + 2 * B * clen * KV * hd),
                            4.0 * B * H * clen * hd)
-        return {"shape": {"B": B, "S": S, "cache_len": clen, "H": H,
-                          "KV": KV, "hd": hd},
-                "ms": time_ms(lambda: fd.flash_decode(q, k, v, clen),
-                              iters=iters),
-                "plain_ms": time_ms(lambda: flash_decode_ref(q, k, v, clen),
-                                    iters=iters),
-                "library_ms": time_ms(lib, iters=iters),
-                "library_max_abs_diff": lib_err,
-                "bound_ms": b_ms, "bound_by": b_by}
+        out = {"shape": {"B": B, "S": S, "cache_len": clen, "H": H,
+                         "KV": KV, "hd": hd},
+               "splits": fd.decode_splits(B, KV, S, torch.cuda.
+                                          get_device_properties(dev).
+                                          multi_processor_count),
+               "ms": time_ms(lambda: fd.flash_decode(q, k, v, clen),
+                             iters=iters),
+               "device_ms": device_ms_per_launch(
+                   lambda: fd.flash_decode(q, k, v, clen),
+                   "flash_decode_kernel"),
+               "plain_ms": time_ms(lambda: flash_decode_ref(q, k, v, clen),
+                                   iters=iters),
+               "library_ms": time_ms(lib, iters=iters),
+               "library_max_abs_diff": lib_err,
+               "bound_ms": b_ms, "bound_by": b_by}
+        if clen == S:
+            # the boolean mask may send SDPA to a slower backend: the
+            # same call without a mask is a second yardstick
+            def lib_nomask():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      enable_gqa=True)
+            out["library_nomask_ms"] = time_ms(lib_nomask, iters=iters)
+            out["library_nomask_max_abs_diff"] = float(
+                (lib_nomask()[:, :, 0]
+                 - flash_decode_ref(q, k, v, clen)).abs().max())
+        return out
 
     c = lm_cfg
     out = {
@@ -604,12 +685,15 @@ def time_attention(gen, lm_cfg, lm_batch: int, lm_prompt: int,
             # the last decode step's cache length
             "lm": k4(lm_batch, c.s_max, lm_prompt + lm_gen - 1, c.n_heads,
                      c.n_kv, c.head_dim, 100),
-            "granite": k4(8, 32768, 32768, 32, 8, 64, 20)},
+            "granite": k4(8, 32768, 32768, 32, 8, 64, 20),
+            "granite_b1": k4(1, 32768, 32768, 32, 8, 64, 50)},
     }
     for name, shapes in out.items():
         for where, t in shapes.items():
-            log(f"{name} {where} {t['shape']}: {t['ms']:.4f} ms, plain "
-                f"{t['plain_ms']:.4f}, sdpa {t['library_ms']:.4f}, bound "
+            log(f"{name} {where} {t['shape']}: {t['ms']:.4f} ms (device "
+                f"{t['device_ms']}), plain {t['plain_ms']:.4f}, sdpa "
+                f"{t['library_ms']:.4f} (no mask "
+                f"{t.get('library_nomask_ms')}), bound "
                 f"{t['bound_ms']:.4f} ({t['bound_by']})")
     return out
 
@@ -735,10 +819,10 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
             "launches": lm_serve["launches"][name],
             "max_abs_err": attn_err[name],
-            **{key: t["lm"][key] for key in ("ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms",
-                                             "shape")},
-            "granite": t["granite"]})
+            **{key: t["lm"][key] for key in ("ms", "device_ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "library_ms", "shape")},
+            **{where: t[where] for where in t if where != "lm"}})
     timing = time_slice(tr)
     timing["profile"] = profile_epoch(tr)
     timing.update({"slice_s": slice_s,

@@ -31,7 +31,8 @@ SIGNATURES = {
     "mem_attention": ("mem_attention_f32",
                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "flash_decode": ("flash_decode_f32",
-                     [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]),
+                     [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _P]),
 }
 
 _loaded: Dict[str, object] = {}

@@ -21,8 +21,9 @@ launches = 0
 
 def check_attention_args(name: str, q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor, q_ndim: int) -> None:
-    """What the attention kernels take: float32, contiguous tensors on
-    one CUDA device, a head dim in ``HEAD_DIMS``, H a multiple of KV."""
+    """What the attention kernels take: float32, contiguous, 16-byte
+    aligned tensors on one CUDA device, a head dim in ``HEAD_DIMS``, H a
+    multiple of KV."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"{name}: q on {q.device}, k on {k.device}, v on "
                          f"{v.device}; all must be on one CUDA device (or "
@@ -41,6 +42,9 @@ def check_attention_args(name: str, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{name}: head dim {hd} is not one of {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name} takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name} takes 16-byte aligned tensors (the "
+                         "kernel copies 16 bytes at a time)")
 
 
 def mem_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -67,3 +67,35 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s.masked_fill(~valid, NEG_INF), dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", p, v.float())
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def flash_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           cache_len, n_splits: int) -> torch.Tensor:
+    """``flash_decode_ref`` computed as the split kernel computes it: the
+    valid rows [0, len) cut into ``n_splits`` pieces of ceil(len /
+    n_splits) rows, each piece's (max m, denominator l, accumulator acc)
+    taken alone (an empty piece gives m = -1e30, l = 0), then combined:
+    out = sum_i acc_i e^(m_i - M) / max(sum_i l_i e^(m_i - M), 1e-30)."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    clen = min(max(int(cache_len), 0), S)
+    per = -(-clen // n_splits)
+    qh = q.reshape(B, KV, G, hd).float()
+    ms, ls, accs = [], [], []
+    for i in range(n_splits):
+        r0, r1 = min(i * per, clen), min((i + 1) * per, clen)
+        s = torch.einsum("bkgh,bskh->bkgs", qh,
+                         k[:, r0:r1].float()) / math.sqrt(hd)
+        m = (s.amax(-1) if r1 > r0 else
+             torch.full((B, KV, G), NEG_INF, device=q.device))
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkgs,bskh->bkgh", p, v[:, r0:r1].float()))
+    m = torch.stack(ms)
+    w = torch.exp(m - m.amax(0))
+    l = (torch.stack(ls) * w).sum(0)
+    acc = (torch.stack(accs) * w[..., None]).sum(0)
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.reshape(B, H, hd).to(q.dtype)
