@@ -30,7 +30,9 @@ Phases (any failure exits non-zero and prints no result):
      is profiled;
   7. holds K1 (clustered_agg) and K2 (kmeans_assign) against their plain
      PyTorch versions at the slice's shapes, plus ragged and tied cases,
-     and K3 (mem_attention) and K4 (flash_decode) over head dims 8-256,
+     K2 also at N=256 M=4 and N=4096 M=6 with exact ties and NaN centres
+     (the first NaN wins), and K3 (mem_attention) and K4 (flash_decode)
+     over head dims 8-256,
      GQA groups, ragged lengths and masks, K4 also at the cache lengths
      around its split boundaries and below its split count, from the
      split LM's own shapes and cache lengths up to the granite-3-2b
@@ -38,8 +40,11 @@ Phases (any failure exits non-zero and prints no result):
   8. times each kernel, its plain version and the one PyTorch call that
      computes the same function (torch.matmul for K1,
      scaled_dot_product_attention for K3/K4, for K4 at a full cache also
-     without a mask), K3/K4 at the LM's shape (with the device time per
-     launch from torch.profiler) and at the granite-3-2b shapes (K4 at
+     without a mask), with the device time per launch from
+     torch.profiler; K2 at the training shape (N=8 M=4), the JAX kernel
+     benchmark's (N=256 M=4) and a 4096-client population (M=6), beside
+     the two calls addmm + argmin of its use_kernel=False path; K3/K4 at
+     the LM's shape and at the granite-3-2b shapes (K4 at
      batch 8 and 1), then one epoch and one clustered
      round of the slice's trainer, and profiles one epoch (device busy
      share, the kernels that take the time);
@@ -333,38 +338,115 @@ def check_kernels(tr):
     if not torch.equal(got, kmeans_assign_ref(x, c)) or got.tolist() != [0, 1, 2]:
         raise AssertionError(f"K2 exact ties resolve to {got.tolist()}")
     log("K2 labels equal the plain version (M in 2..%d, exact ties)" % bound_k)
+    # the training path's shape, the JAX package's kernel-benchmark shape
+    # (benchmarks/kernel_bench.py) and a population of 4096 clients at
+    # k_max = 6 centres, where x (103 MB) exceeds the L2 cache
+    k2_shapes = {"train": (N, bound_k, D), "kernel_bench_256": (256, 4, D),
+                 "population_4096": (4096, 6, D)}
+    for where, (NN, M, DD) in k2_shapes.items():
+        check_kmeans_assign(gen, NN, M, DD, where)
 
     # timing at the slice's shapes
     S, D = S_cl, plans["G"].n_cols
     w = torch.softmax(torch.randn((S, K), generator=gen, device=dev), 1)
     theta = torch.randn((K, D), generator=gen, device=dev)
     k1_ms = time_ms(lambda: wa.clustered_agg_flat(w, theta))
+    k1_dev = device_ms_per_launch(lambda: wa.clustered_agg_flat(w, theta),
+                                  "clustered_agg_kernel")
     k1_plain = time_ms(lambda: clustered_agg_ref(w, theta))
     k1_lib = time_ms(lambda: torch.matmul(w, theta))
     k1_bound, k1_by = bound(4.0 * (S * K + K * D + S * D), 2.0 * S * K * D)
-    M = bound_k
-    x = torch.randn((N, DISC_MIDDLE_FEATURES), generator=gen, device=dev)
-    c = torch.randn((M, DISC_MIDDLE_FEATURES), generator=gen, device=dev)
-    k2_ms = time_ms(lambda: km.kmeans_assign(x, c))
-    k2_plain = time_ms(lambda: kmeans_assign_ref(x, c))
-    F_ = DISC_MIDDLE_FEATURES
-    k2_bound, k2_by = bound(4.0 * (N * F_ + M * F_ + N),
-                            2.0 * N * M * F_ + 2.0 * M * F_)
-    log(f"K1 timed at S={S} K={K} D={D}; K2 at N={N} M={M} D={F_}")
+    log(f"K1 timed at S={S} K={K} D={D}: {k1_ms:.4f} ms (device {k1_dev})")
+    k2 = {where: time_kmeans_assign(gen, *shape)
+          for where, shape in k2_shapes.items()}
     return [
         {"name": "clustered_agg", "route": "cuda",
          "source": "src/repro_torch/csrc/clustered_agg.cu",
          "replaces": "src/repro/kernels/weighted_agg.py:69",
          "launches": None, "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": k1_lib},
+         "device_ms": k1_dev, "plain_ms": k1_plain, "bound_ms": k1_bound,
+         "bound_by": k1_by, "library_ms": k1_lib},
         {"name": "kmeans_assign", "route": "cuda",
          "source": "src/repro_torch/csrc/kmeans_assign.cu",
          "replaces": "src/repro/kernels/kmeans_assign.py:31",
-         "launches": None, "max_abs_err": 0.0, "ms": k2_ms,
-         "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": None},
+         "launches": None, "max_abs_err": 0.0,
+         **{key: k2["train"][key] for key in (
+             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "shape")},
+         **k2},
     ]
+
+
+def check_kmeans_assign(gen, N: int, M: int, D: int, where: str) -> None:
+    """K2 against its plain version at x [N, D] and M centres: random
+    centres, exact duplicate centres (ties go to the lowest index) and
+    centres holding a NaN (the first NaN wins, as jnp.argmin takes it)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import kmeans_assign as km
+    from repro_torch.kernels.ref import kmeans_assign_ref
+    dev = torch.device("cuda")
+    # small integers: every product and sum is exact in float32, so the
+    # labels (exact ties included) cannot depend on summation order
+    x = torch.randint(-4, 5, (N, D), generator=gen, device=dev).float()
+    c = torch.randint(-4, 5, (M, D), generator=gen, device=dev).float()
+    cases = [("random", x, c, None)]
+    # rows 0..h-1 of the centres repeat as rows M-1..M-h; each row of x
+    # lies next to one of the first h
+    h = M // 2
+    base = torch.randn((h, D), generator=gen, device=dev) * 2
+    ct = torch.cat([base, c[h:M - h], base.flip(0)], 0)
+    xt = base[torch.arange(N, device=dev) % h] + 0.01 * torch.randn(
+        (N, D), generator=gen, device=dev)
+    cases.append(("ties", xt, ct, torch.arange(N, device=dev) % h))
+    for m in sorted({0, M // 2, M - 1}):
+        cn = c.clone()
+        cn[m:, 17] = float("nan")       # centres m..M-1 hold a NaN
+        cases.append((f"nan_from_{m}", x, cn,
+                      torch.full((N,), m, device=dev)))
+    for name, xx, cc, expect in cases:
+        got, want = km.kmeans_assign(xx, cc), kmeans_assign_ref(xx, cc)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"K2 {where} {name}: {bad} of {N} labels "
+                                 "differ from the plain version")
+        if expect is not None and not torch.equal(got.long(), expect):
+            raise AssertionError(f"K2 {where} {name}: labels are not the "
+                                 "lowest tied index or the first NaN")
+    if any(int(t.abs().sum()) for t, _ in build.scratch.values()):
+        raise AssertionError("K2 left a ticket counter above 0")
+    log(f"K2 {where} N={N} M={M} D={D}: labels equal the plain version "
+        "(random, exact ties, NaN centres)")
+
+
+def time_kmeans_assign(gen, N: int, M: int, D: int) -> dict:
+    """K2's times at x [N, D], M centres: the CUDA-event loop, the device
+    time per launch from torch.profiler, the plain version and, as a
+    yardstick of two calls (not one library call), the scores and argmin
+    of the port's use_kernel=False path, with |c|^2 computed beforehand."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import kmeans_assign as km
+    from repro_torch.kernels.ref import kmeans_assign_ref
+    dev = torch.device("cuda")
+    x = torch.randn((N, D), generator=gen, device=dev)
+    c = torch.randn((M, D), generator=gen, device=dev)
+    cc = (c * c).sum(-1)
+    n, _ = km.assign_splits(N, D, build.sm_count(0))
+    b_ms, b_by = bound(4.0 * (N * D + M * D + N), 2.0 * N * M * D + 2.0 * M * D)
+    out = {"shape": {"N": N, "M": M, "D": D}, "splits": n,
+           "ms": time_ms(lambda: km.kmeans_assign(x, c)),
+           "device_ms": device_ms_per_launch(
+               lambda: km.kmeans_assign(x, c), "kmeans_assign_kernel"),
+           "plain_ms": time_ms(lambda: kmeans_assign_ref(x, c)),
+           "addmm_argmin_ms": time_ms(
+               lambda: torch.argmin(torch.addmm(cc, x, c.T, alpha=-2), 1)),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    log(f"K2 timed at N={N} M={M} D={D} ({n} splits): {out['ms']:.4f} ms "
+        f"(device {out['device_ms']}), plain {out['plain_ms']:.4f}, addmm + "
+        f"argmin {out['addmm_argmin_ms']:.4f}, bound {b_ms:.5f} ({b_by})")
+    return out
 
 
 def monolithic_image(engine, req):

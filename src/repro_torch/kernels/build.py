@@ -10,13 +10,16 @@ current one is reused. Nothing is built when this module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -27,7 +30,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the C signature of every kernel library: (function name, argtypes)
 SIGNATURES = {
     "clustered_agg": ("clustered_agg_f32", [_P, _P, _P, _I, _I, _LL, _I, _P]),
-    "kmeans_assign": ("kmeans_assign_f32", [_P, _P, _P, _I, _I, _I, _P]),
+    "kmeans_assign": ("kmeans_assign_f32",
+                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "mem_attention": ("mem_attention_f32",
                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "flash_decode": ("flash_decode_f32",
@@ -37,6 +41,13 @@ SIGNATURES = {
 
 _loaded: Dict[str, object] = {}
 _lock = threading.Lock()
+
+# (device index, stream) -> (int32 ticket counters, float32 workspace) of
+# the kernels that combine their splits in the launch (K2, K4). Each such
+# kernel leaves its counters at 0 and reads only the workspace its own
+# launch wrote, and kernels queued on one stream run one after another,
+# so the kernels of one stream share both.
+scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _nvcc() -> str:
@@ -79,6 +90,27 @@ def build(names: Sequence[str] = tuple(SIGNATURES)) -> Dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The number of SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_scratch(device: torch.device, stream: int, n_counters: int,
+                  n_floats: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """At least ``n_counters`` zeroed int32 ticket counters and an
+    ``n_floats`` float32 workspace for ``stream`` on ``device``, allocated
+    once and grown as needed."""
+    key = (device.index, stream)
+    cnt, ws = scratch.get(key, (None, None))
+    if cnt is None or cnt.numel() < n_counters:
+        cnt = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    if ws is None or ws.numel() < n_floats:
+        ws = torch.empty(n_floats, dtype=torch.float32, device=device)
+    scratch[key] = (cnt, ws)
+    return cnt, ws
 
 
 def kernel(name: str):

@@ -13,8 +13,7 @@ per-stream int32 counter array that the kernel leaves at 0.
 """
 from __future__ import annotations
 
-import functools
-from typing import Dict, List, Tuple, Union
+from typing import List, Union
 
 import torch
 
@@ -33,9 +32,6 @@ MAX_SPLITS = 128
 
 # kernel launches since the last reset (the chip smoke test reads it)
 launches = 0
-
-# (device index, stream) -> int32 ticket counters, zeroed once
-_counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def decode_splits(B: int, KV: int, S: int, n_sm: int) -> int:
@@ -56,21 +52,6 @@ def split_boundary_lengths(S: int, n: int) -> List[int]:
     near = {per * i + d for i in (1, 2, n - 1, n) for d in (-1, 0, 1)}
     return sorted(x for x in near | {1, n // 2, n - 1, n, n + 1, S - 7, S}
                   if 1 <= x <= S)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _ticket_counters(device: torch.device, stream: int, n: int
-                     ) -> torch.Tensor:
-    key = (device.index, stream)
-    c = _counters.get(key)
-    if c is None or c.numel() < n:
-        c = torch.zeros(n, dtype=torch.int32, device=device)
-        _counters[key] = c
-    return c
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -103,12 +84,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if min(B, H) == 0:
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    n = decode_splits(B, KV, S, _sm_count(q.device.index))
+    n = decode_splits(B, KV, S, build.sm_count(q.device.index))
     if n > 1:
-        ws = torch.empty((2 + hd) * B * H * n, dtype=torch.float32,
-                         device=q.device)
-        ws_ptr = ws.data_ptr()
-        cnt_ptr = _ticket_counters(q.device, stream, B * KV).data_ptr()
+        cnt, ws = build.split_scratch(q.device, stream, B * KV,
+                                      (2 + hd) * B * H * n)
+        ws_ptr, cnt_ptr = ws.data_ptr(), cnt.data_ptr()
     else:
         ws_ptr = cnt_ptr = None
     rc = build.kernel("flash_decode")(

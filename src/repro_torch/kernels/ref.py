@@ -22,11 +22,43 @@ def clustered_agg_ref(weights: torch.Tensor, stacked: torch.Tensor
 
 def kmeans_assign_ref(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     """Nearest-centre assignment: x [N, D], centers [M, D] -> labels [N]
-    int32, ties to the lowest index."""
+    int32, ties to the lowest index, the first NaN distance winning (as
+    jnp.argmin and torch.argmin take it)."""
     x, c = x.float(), centers.float()
     d2 = ((x * x).sum(-1)[:, None] - 2.0 * x @ c.T
           + (c * c).sum(-1)[None, :])
     return torch.argmin(d2, dim=1).to(torch.int32)
+
+
+def kmeans_split_len(D: int, n_splits: int) -> int:
+    """Columns per split when K2 splits D ``n_splits`` ways: D // n_splits
+    rounded down to a multiple of 4, so every split starts on a 16-byte
+    boundary of its row; the last split runs on to D."""
+    return D if n_splits == 1 else D // n_splits // 4 * 4
+
+
+def kmeans_assign_split_ref(x: torch.Tensor, centers: torch.Tensor,
+                            n_splits: int) -> torch.Tensor:
+    """``kmeans_assign_ref`` computed as the split kernel computes it:
+    columns cut into ``n_splits`` splits of ``kmeans_split_len`` columns,
+    each split's x . c_m and |c_m|^2 taken alone, summed in split order,
+    score -2 x . c_m + |c_m|^2 (no |x|^2 term); the argmin takes the first
+    NaN, as jnp.argmin does. Every centre's sums run through one
+    reduction, so exact duplicate centres tie."""
+    x, c = x.float(), centers.float()
+    (N, D), M = x.shape, c.shape[0]
+    per = kmeans_split_len(D, n_splits)
+    dot = torch.zeros((M, N), device=x.device)
+    cc = torch.zeros((M,), device=x.device)
+    for i in range(n_splits):
+        cols = slice(i * per, D if i == n_splits - 1 else (i + 1) * per)
+        xs = x[:, cols]
+        for m in range(M):
+            cm = c[m, cols]
+            dot[m] = dot[m] + (xs * cm).sum(-1)
+            cc[m] = cc[m] + (cm * cm).sum()
+    scores = -2.0 * dot.T + cc[None, :]
+    return torch.argmin(scores, dim=1).to(torch.int32)
 
 
 def mem_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -26,6 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as pallas_ops  # noqa: E402
 from repro.kernels.kmeans_assign import kmeans_assign as pallas_assign  # noqa: E402
 from repro.kernels.weighted_agg import clustered_agg_flat as pallas_agg  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import kmeans_assign as km  # noqa: E402
 from repro_torch.kernels import mem_attention as ma  # noqa: E402
@@ -33,7 +34,9 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import weighted_agg as wa  # noqa: E402
 from repro_torch.kernels.ref import (clustered_agg_ref, flash_decode_ref,  # noqa: E402
                                      flash_decode_split_ref,
-                                     kmeans_assign_ref, mem_attention_ref)
+                                     kmeans_assign_ref,
+                                     kmeans_assign_split_ref,
+                                     kmeans_split_len, mem_attention_ref)
 
 AGG_TOL = 1e-5
 ATTN_TOL = 2e-5
@@ -100,6 +103,105 @@ def test_kmeans_assign_exact_ties_pick_lowest_index():
                                     interpret=True))
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, np.arange(3))
+
+
+def _split_counts(D):
+    """Split counts that give every split at least 4 columns, and the one
+    the wrapper picks at N = 8 on 132 SMs."""
+    ns = {1, 2, 3, 7, 24, 32, km.assign_splits(8, D, 132)[0]}
+    return sorted(n for n in ns if kmeans_split_len(D, n) >= 4)
+
+
+@pytest.mark.parametrize("N", [1, 8, 257])
+@pytest.mark.parametrize("M", [1, 2, 6, 9])
+@pytest.mark.parametrize("D", [32, 6272, 10_001])
+def test_kmeans_assign_split_ref_matches_pallas(N, M, D):
+    """The split kernel's arithmetic (per-split x . c and |c|^2 summed in
+    split order, no |x|^2 term) gives the TPU kernel's labels."""
+    rng = np.random.default_rng(7 * N + M + D)
+    x = rng.normal(size=(N, D)).astype(np.float32)
+    c = (rng.normal(size=(M, D)) * 3).astype(np.float32)
+    want = np.asarray(pallas_assign(jnp.asarray(x), jnp.asarray(c),
+                                    interpret=True))
+    for n in _split_counts(D):
+        got = kmeans_assign_split_ref(torch.from_numpy(x), torch.from_numpy(c),
+                                      n)
+        assert got.dtype == torch.int32 and tuple(got.shape) == (N,)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"n={n}")
+
+
+@pytest.mark.parametrize("D", [64, 6272, 10_001])
+def test_kmeans_assign_split_ref_exact_ties_pick_lowest_index(D):
+    rng = np.random.default_rng(D)
+    base = (rng.normal(size=(3, D)) * 2).astype(np.float32)
+    c = np.concatenate([base, base[::-1]], 0)          # rows 0..2 == 5..3
+    x = (base + 0.01 * rng.normal(size=(3, D))).astype(np.float32)
+    want = np.asarray(pallas_assign(jnp.asarray(x), jnp.asarray(c),
+                                    interpret=True))
+    np.testing.assert_array_equal(want, np.arange(3))
+    for n in _split_counts(D):
+        got = kmeans_assign_split_ref(torch.from_numpy(x), torch.from_numpy(c),
+                                      n).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=f"n={n}")
+
+
+# centres holding a NaN (and rows of x holding one): every distance to a
+# NaN centre is NaN, and jnp.argmin takes the first NaN
+NAN_CASES = {"first": ([0], []), "middle": ([2], []), "last": ([4], []),
+             "middle_and_last": ([2, 4], []), "row": ([], [1])}
+
+
+@pytest.mark.parametrize("case", sorted(NAN_CASES))
+def test_kmeans_assign_first_nan_wins_like_pallas(case):
+    nan_centres, nan_rows = NAN_CASES[case]
+    rng = np.random.default_rng(3)
+    N, M, D = 9, 5, 6272
+    x = rng.normal(size=(N, D)).astype(np.float32)
+    c = (rng.normal(size=(M, D)) * 3).astype(np.float32)
+    c[nan_centres, 17] = np.nan
+    x[nan_rows, 5] = np.nan
+    want = np.asarray(pallas_assign(jnp.asarray(x), jnp.asarray(c),
+                                    interpret=True))
+    if nan_centres:
+        np.testing.assert_array_equal(want, np.full(N, nan_centres[0]))
+    else:
+        assert all(want[r] == 0 for r in nan_rows)
+    xt, ct = torch.from_numpy(x), torch.from_numpy(c)
+    np.testing.assert_array_equal(kmeans_assign_ref(xt, ct).numpy(), want)
+    np.testing.assert_array_equal(km.kmeans_assign(xt, ct).numpy(), want)
+    for n in _split_counts(D):
+        np.testing.assert_array_equal(
+            kmeans_assign_split_ref(xt, ct, n).numpy(), want,
+            err_msg=f"n={n}")
+
+
+@pytest.mark.parametrize("N,D", [(1, 1), (1, 255), (8, 256), (8, 6272),
+                                 (8, 10_001), (256, 6272), (257, 6272),
+                                 (1024, 6272), (4096, 6272), (8, 10 ** 6),
+                                 (10 ** 6, 6272)])
+def test_assign_splits_start_aligned_and_long_enough(N, D):
+    n, per = km.assign_splits(N, D, 132)
+    assert 1 <= n <= km.MAX_SPLITS
+    if n == 1:
+        assert per == D
+        return
+    starts = [i * per for i in range(n)]
+    lens = [per] * (n - 1) + [D - starts[-1]]
+    assert all(s % 4 == 0 for s in starts)
+    assert min(lens) >= km.MIN_SPLIT and sum(lens) == D
+    tiles = -(-N // km.ROWS_PER_BLOCK)
+    assert tiles * n <= km.BLOCKS_PER_SM * 132
+
+
+def test_assign_splits_fill_the_card_and_leave_large_n_whole():
+    # the trainer's 8 rows: one row tile, split D so the grid fills SMs
+    n, _ = km.assign_splits(8, 6272, 132)
+    assert n == 6272 // km.MIN_SPLIT
+    # the JAX kernel benchmark's 256 rows: 16 tiles, split to ~one wave
+    n, _ = km.assign_splits(256, 6272, 132)
+    assert 132 <= 16 * n <= km.BLOCKS_PER_SM * 132
+    # a population of 4096 rows fills the card alone: one split
+    assert km.assign_splits(4096, 6272, 132) == (1, 6272)
 
 
 def test_wrappers_launch_or_raise_off_the_cpu():
@@ -422,14 +524,56 @@ def test_clustered_agg_kernel_on_card(cuda, S, K, D):
                                rtol=AGG_TOL, atol=AGG_TOL)
 
 
+def _counters_at_zero():
+    return all(int(c.abs().sum()) == 0 for c, _ in build.scratch.values())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [2, 3, 4, 9])
-def test_kmeans_assign_kernel_on_card(cuda, M):
-    gen = torch.Generator(device=cuda).manual_seed(M)
-    x = torch.randn((8, 6272), generator=gen, device=cuda)
-    c = torch.randn((M, 6272), generator=gen, device=cuda)
+@pytest.mark.parametrize("N", [1, 8, 257, 4096])
+@pytest.mark.parametrize("M", [2, 3, 4, 6, 9, 17])
+@pytest.mark.parametrize("D", [6272, 10_001])
+def test_kmeans_assign_kernel_on_card(cuda, N, M, D):
+    """Small integers make every product and sum exact in float32, so the
+    labels (exact ties included) do not depend on summation order: with
+    Gaussian inputs at N = 4096 a few rows per run sit within rounding of
+    a tie, and two correct summation orders part there."""
+    gen = torch.Generator(device=cuda).manual_seed(N + M + D)
+    x = torch.randint(-4, 5, (N, D), generator=gen, device=cuda).float()
+    c = torch.randint(-4, 5, (M, D), generator=gen, device=cuda).float()
+    before = km.launches
+    got = km.kmeans_assign(x, c)
+    torch.cuda.synchronize()
+    assert km.launches == before + 1
+    assert _counters_at_zero()
+    assert torch.equal(got, kmeans_assign_ref(x, c))
+    n, _ = km.assign_splits(N, D, torch.cuda.get_device_properties(cuda).
+                            multi_processor_count)
+    assert torch.equal(got.cpu(), kmeans_assign_split_ref(x.cpu(), c.cpu(),
+                                                          n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D", [(8, 6272), (256, 6272), (4096, 6272),
+                                 (8, 10_001), (257, 10_001)])
+def test_kmeans_assign_ties_and_nan_on_card(cuda, N, D):
+    """Exact duplicate centres resolve to the lowest index and a NaN
+    centre wins from its first index, with and without splits."""
+    gen = torch.Generator(device=cuda).manual_seed(N + D)
+    base = torch.randn((3, D), generator=gen, device=cuda) * 2
+    c = torch.cat([base, base.flip(0)], 0)          # rows 0..2 == 5..3
+    x = base[torch.arange(N, device=cuda) % 3] + 0.01 * torch.randn(
+        (N, D), generator=gen, device=cuda)
     before = km.launches
     got = km.kmeans_assign(x, c)
     torch.cuda.synchronize()
     assert km.launches == before + 1
     assert torch.equal(got, kmeans_assign_ref(x, c))
+    assert torch.equal(got.long(), torch.arange(N, device=cuda) % 3)
+    for nan_centres in ([0], [2], [5], [2, 5]):
+        cn = c.clone()
+        cn[nan_centres, 11] = float("nan")
+        got = km.kmeans_assign(x, cn)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kmeans_assign_ref(x, cn))
+        assert bool((got == nan_centres[0]).all())
+    assert _counters_at_zero()
