@@ -10,13 +10,30 @@ Phases (any failure exits non-zero and prints no result):
      (sm_90a), one nvcc per source, all started together;
   3. the training slice: ``repro_torch.launch.train.main`` at the paper's
      full Table-3 widths, 8 clients, --epochs 6 --federate-every 2 (two
-     FedAvg warm-up rounds, then clustered rounds), with the launch
-     counts of K1/K2 set to 0 just before and read just after;
-  4. checks the outcome: the rounds ran, every kernel launched, losses
+     FedAvg warm-up rounds, then clustered rounds) --ckpt
+     build/slice.ckpt, with the launch counts of K1/K2 set to 0 just
+     before and read just after;
+  4. checks the outcome: the checkpoint loads back onto the trained
+     state bit for bit, the rounds ran, every kernel launched, losses
      and parameters are finite, the generator's images have the right
      shape and range, a clustered round through the kernels equals the
      same round through their plain expressions, and a small trainer on
      the card agrees with the same trainer on the CPU;
+  4b. the population: ``train.main`` with --clients 512 --cohort 128
+     --agg-chunk 64 --epochs 4 --federate-every 1 --base-size 24 (one
+     step per epoch; two chunked cohort FedAvg rounds, then two chunked
+     cohort clustered rounds), with the counts set to 0 just before and
+     read just after: K1 launched once per chunk tile (sum over groups
+     of ceil(Kg / 64), per net per round) and K2 only on 512 rows. Then
+     one more clustered round leaves non-members bit for bit and moves
+     every member; from one state and one set of weights and labels the
+     dense and the chunked round, each through K1 and through the plain
+     product, agree within 1e-5 relative (time and peak device memory
+     of each beside the plan's dense and chunked buffer bytes); a
+     label-KLD round (host numpy clustering at the device round's k)
+     gives finite weights that sum to 1 per (cluster, cohort); one more
+     epoch and clustered round are profiled (device busy share, the
+     kernels that take the time). Prints the ``population`` line;
   5. GAN split serving: ``repro_torch.launch.serve_split.main --mode gan``
      at full width on both profile mixes (24 requests each); the images
      are finite, in the tanh range and equal each client's monolithic
@@ -30,7 +47,9 @@ Phases (any failure exits non-zero and prints no result):
      is profiled;
   7. holds K1 (clustered_agg) and K2 (kmeans_assign) against their plain
      PyTorch versions at the slice's shapes, plus ragged and tied cases,
-     K2 also at N=256 M=4 and N=4096 M=6 with exact ties and NaN centres
+     K1 also at the population's chunk tile [S, 64] @ [64, D_G],
+     K2 also at N=256 M=4, N=512 M=6 (the population) and N=4096 M=6
+     with exact ties and NaN centres
      (the first NaN wins), and K3 (mem_attention) and K4 (flash_decode)
      over head dims 8-256,
      GQA groups, ragged lengths and masks, K4 also at the cache lengths
@@ -48,8 +67,10 @@ Phases (any failure exits non-zero and prints no result):
      batch 8 and 1), then one epoch and one clustered
      round of the slice's trainer, and profiles one epoch (device busy
      share, the kernels that take the time);
-  9. prints a JSON line with the slice's times, one with the serving
-     times (``serve``), one with the kernels, then the result line.
+  9. prints a JSON line with the slice's times, the ``population``
+     line, one with the serving times (``serve``), one with the kernels
+     (K1 and K2 with their population shapes and launches), then the
+     result line.
 
 Float32 products and convolutions run in full float32 (TF32 off).
 """
@@ -81,6 +102,10 @@ GAN_TOL = 1e-4
 # split LM decode logits vs the dense monolithic forward (the reference's
 # own engine-vs-oracle tolerance)
 LM_TOL = 2e-4
+# the population phase: 512 clients fit the card's 80 GB with the dense
+# round's [K, D] buffer beside the chunked one (PERF.md section 4)
+POP_CLIENTS, POP_COHORT, POP_CHUNK = 512, 128, 64
+POP_BASE_SIZE = 24              # with the launcher's batch 16: one step
 
 
 def log(msg: str) -> None:
@@ -449,6 +474,312 @@ def time_kmeans_assign(gen, N: int, M: int, D: int) -> dict:
     return out
 
 
+def same_bits(a, b) -> bool:
+    """Two state leaves hold the same bits (tensors) or values (ints)."""
+    import torch
+    if not isinstance(b, torch.Tensor):
+        return a == b
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def check_checkpoint(tr, path: str) -> int:
+    """The launcher's checkpoint loads back onto a template of the
+    trained state (the reference's layouts) and, converted back, equals
+    that state bit for bit; returns the number of leaves."""
+    from repro_torch.bridge import state_from_numpy, state_to_numpy
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.checkpoint.ckpt import tree_flatten
+    back, step = load_checkpoint(path, state_to_numpy(tr.state))
+    if step != tr.epoch:
+        raise AssertionError(f"checkpoint step {step} != epoch {tr.epoch}")
+    got = tree_flatten(state_from_numpy(back, tr.device))[0]
+    want = tree_flatten(tr.state)[0]
+    if len(got) != len(want) or not all(map(same_bits, got, want)):
+        raise AssertionError("the checkpoint does not load back bit for bit")
+    log(f"checkpoint {path}: {len(want)} leaves load back bit for bit")
+    return len(want)
+
+
+def k1_tiles(groups, chunk: int) -> int:
+    """K1 launches of one chunked round of one net: one per chunk tile,
+    ceil(Kg / chunk) per profile group."""
+    return sum(-(-g.size // chunk) for g in groups if g.size)
+
+
+def max_rel_diff(a_tree, b_tree) -> float:
+    """Largest |a - b| over two client-param trees, relative to each
+    leaf's scale (at least 1)."""
+    from repro_torch.tree import tree_leaves
+    worst = 0.0
+    for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
+        scale = max(1.0, float(b.abs().max()))
+        worst = max(worst, float((a - b).abs().max()) / scale)
+    return worst
+
+
+def run_population(train_main, device: str = "cuda") -> dict:
+    """The population phase (docstring, 4b); returns the population
+    line's fields."""
+    import numpy as np
+    import torch
+    from repro_torch.core import kld
+    from repro_torch.core.clustering import (cluster_activations,
+                                             k_selection_bound)
+    from repro_torch.core.federation import (N_LAYERS,
+                                             federate_client_params_device)
+    from repro_torch.kernels import kmeans_assign as km
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import weighted_agg as wa
+    from repro_torch.tree import tree_items, tree_leaves, tree_map
+
+    # record the rows of every K2 call the trainer makes
+    k2_rows = []
+    assign = ops.kmeans_assign
+
+    def recording_assign(x, centers):
+        k2_rows.append((int(x.shape[0]), int(centers.shape[0])))
+        return assign(x, centers)
+
+    ops.kmeans_assign = recording_assign
+    wa.launches = 0
+    km.launches = 0
+    try:
+        t0 = time.perf_counter()
+        tr = train_main(["--arch", "huscf-gan", "--clients",
+                         str(POP_CLIENTS), "--cohort", str(POP_COHORT),
+                         "--agg-chunk", str(POP_CHUNK), "--epochs", "4",
+                         "--federate-every", "1", "--base-size",
+                         str(POP_BASE_SIZE), "--device", device])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        ops.kmeans_assign = assign
+    counts = {"clustered_agg": wa.launches, "kmeans_assign": km.launches}
+    modes = [d["mode"] for d in tr.fed_log]
+    tiles = k1_tiles(tr.groups, POP_CHUNK)
+    want_k1 = 2 * tiles * len(modes)
+    log(f"population ran in {run_s:.1f}s (GA {tr.ga_seconds:.1f}s); rounds "
+        f"{modes}; launches {counts}; K1 reckoned {want_k1}; K2 rows "
+        f"{sorted(set(k2_rows))}")
+    if modes != ["fedavg", "fedavg", "clustered", "clustered"]:
+        raise AssertionError(f"population rounds ran as {modes}")
+    if counts["clustered_agg"] != want_k1:
+        raise AssertionError(f"K1 launched {counts['clustered_agg']} times, "
+                             f"reckoned {want_k1} ({tiles} tiles per net "
+                             f"per round)")
+    if not k2_rows or len(k2_rows) != counts["kmeans_assign"] or any(
+            n != POP_CLIENTS for n, _ in k2_rows):
+        raise AssertionError(f"K2 ran {counts['kmeans_assign']} times on "
+                             f"rows {sorted(set(k2_rows))}, not only on "
+                             f"{POP_CLIENTS}")
+    for d in tr.fed_log:
+        if len(d["cohort"]) != POP_COHORT:
+            raise AssertionError(f"round {d['round']} cohort of "
+                                 f"{len(d['cohort'])}")
+    for net in ("G", "D"):
+        if not all_finite(tr.state[net]):
+            raise AssertionError(f"non-finite {net} parameters")
+
+    bound_k = k_selection_bound(POP_CLIENTS)
+    # one epoch (one step) and one more clustered round, timed; the round
+    # leaves every non-member's copies bit for bit and moves every member
+    steps = max(1, int(np.median(tr.sizes)) // tr.cfg.batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train_steps(steps)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    before = {net: tree_map(torch.clone, tr.state[net]["client"])
+              for net in ("G", "D")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    diag = tr.federate()
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    member = torch.zeros(POP_CLIENTS, dtype=torch.bool, device=tr.device)
+    member[diag["cohort"].long()] = True
+    moved = torch.zeros(POP_CLIENTS, dtype=torch.bool, device=tr.device)
+    for net in ("G", "D"):
+        for g in tr.groups:
+            rows = torch.as_tensor(g.client_ids, device=tr.device)
+            for layer, tree in before[net][g.name].items():
+                new = dict(tree_items(tr.state[net]["client"][g.name][layer]))
+                for path, old in tree_items(tree):
+                    same = (old.view(torch.int32) == new[path].view(
+                        torch.int32)).reshape(g.size, -1).all(1)
+                    if bool((~same & ~member[rows]).any()):
+                        raise AssertionError(f"a non-member's {net} layer "
+                                             f"{layer} changed in the round")
+                    moved[rows] |= ~same
+    del before
+    # a member alone in its (cluster, cohort) may get itself back exactly
+    lab = diag["labels"].long()
+    shared = torch.bincount(lab[member], minlength=bound_k)[lab] >= 2
+    if not bool(moved[member & shared].all()):
+        raise AssertionError(f"{int((member & shared & ~moved).sum())} "
+                             "cohort members kept every parameter through "
+                             "the round")
+    log(f"population clustered round ({round_s:.3f}s, k={diag['k']}): "
+        f"{POP_CLIENTS - POP_COHORT} non-members bit for bit, "
+        f"{POP_COHORT} members moved")
+
+    # dense and chunked rounds, through K1 and the plain product, from one
+    # state, one set of weights and labels and one cohort
+    acts = tr._mid_ema
+    bound = bound_k
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels, _, _ = cluster_activations(
+        acts, use_kernel=True,
+        gen=torch.Generator(device=tr.device).manual_seed(11))
+    torch.cuda.synchronize()
+    cluster_s = time.perf_counter() - t0
+    mask = tr.registry.cohort_mask(tr.registry.sample_cohort(
+        torch.Generator(device=tr.device).manual_seed(12), POP_COHORT))
+    weights, _ = kld.activation_weights(acts, tr._sizes_dev, labels, bound,
+                                        tr.cfg.beta, cohort_mask=mask)
+    plans = {}
+    rounds = {}
+    worst = {"dense_vs_chunked": 0.0, "kernel_vs_plain": 0.0}
+    for net in ("G", "D"):
+        wrapped = {g.name: {net: tr.state[net]["client"][g.name]}
+                   for g in tr.groups}
+        outs = {}
+        for chunk in (None, POP_CHUNK):
+            for use_kernel in (True, False):
+                cache = {}
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                wa.launches = 0
+                t0 = time.perf_counter()
+                out = federate_client_params_device(
+                    tr.groups, wrapped, weights, labels, bound,
+                    n_layers={net: N_LAYERS[net]}, use_kernel=use_kernel,
+                    plan_cache=cache, chunk_size=chunk, cohort_mask=mask,
+                    cohort_size=POP_COHORT)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() - base
+                tree = {g.name: out[g.name][net] for g in tr.groups}
+                outs[(chunk, use_kernel)] = tree
+                plan = plans[(net, chunk)] = next(iter(cache.values()))
+                want = (1 if chunk is None else tiles) if use_kernel else 0
+                if wa.launches != want:
+                    raise AssertionError(f"{net} round chunk={chunk} "
+                                         f"launched K1 {wa.launches} times, "
+                                         f"not {want}")
+                rounds.setdefault(net, {})[
+                    f"{'chunked' if chunk else 'dense'}"
+                    f"{'' if use_kernel else '_plain'}"] = {
+                    "s": dt, "peak_bytes": peak,
+                    "out_bytes": 4 * sum(x.numel() for x in
+                                         tree_leaves(tree)),
+                    "k1_launches": wa.launches}
+        rounds[net]["dense_buffer_bytes"] = plans[(net, None)] \
+            .dense_buffer_bytes()
+        rounds[net]["chunked_buffer_bytes"] = plans[(net, POP_CHUNK)] \
+            .chunked_buffer_bytes(bound)
+        d = max_rel_diff(outs[(POP_CHUNK, True)], outs[(None, True)])
+        p = max(max_rel_diff(outs[(c, True)], outs[(c, False)])
+                for c in (None, POP_CHUNK))
+        worst["dense_vs_chunked"] = max(worst["dense_vs_chunked"], d)
+        worst["kernel_vs_plain"] = max(worst["kernel_vs_plain"], p)
+        del outs, wrapped
+        log(f"population {net} rounds: {rounds[net]}")
+    if not max(worst.values()) <= K1_RTOL:
+        raise AssertionError(f"population rounds disagree: {worst} > "
+                             f"{K1_RTOL}")
+    log(f"population dense vs chunked, kernel vs plain: {worst}")
+
+    # the label-KLD round takes the host numpy path; its silhouette over
+    # all candidate k holds an [N, N, D] array per candidate on the host,
+    # so it runs at the k the device round selected
+    tr.cfg.num_clusters = max(1, int(diag["k"]))
+    t0 = time.perf_counter()
+    lk = tr.federate(use_label_kld=True)
+    torch.cuda.synchronize()
+    lk_s = time.perf_counter() - t0
+    tr.cfg.num_clusters = None
+    w, lab = lk["weights"], lk["labels"]
+    cohort = np.zeros(POP_CLIENTS, bool)
+    cohort[lk["cohort"].cpu().numpy()] = True
+    sums = {int(c): float(w[(lab == c) & cohort].sum())
+            for c in np.unique(lab[cohort])}
+    if not np.isfinite(w).all() or np.abs(w[~cohort]).max() != 0.0 or any(
+            abs(v - 1.0) > 1e-9 for v in sums.values()):
+        raise AssertionError(f"label-KLD weights: per (cluster, cohort) sums "
+                             f"{sums}")
+    log(f"population label-KLD round ({lk_s:.1f}s, k={lk['k']}): weights "
+        f"sum to 1 per (cluster, cohort): {sums}")
+    # where an epoch (one step) and a clustered round spend their time
+    prof_epoch = device_profile(lambda: tr.train_steps(steps), per=steps)
+    prof_round = device_profile(tr.federate)
+    log(f"population profiles: epoch busy share "
+        f"{prof_epoch.get('busy_share')}, round busy share "
+        f"{prof_round.get('busy_share')}")
+    line = {"clients": POP_CLIENTS, "cohort": POP_COHORT, "chunk": POP_CHUNK,
+            "groups": len(tr.groups), "group_sizes": [g.size
+                                                      for g in tr.groups],
+            "cuts": sorted({c.as_tuple() for c in tr.cuts}),
+            "ga_s": tr.ga_seconds, "ga_latency": tr.ga_latency,
+            "run_s": run_s, "rounds": modes, "epoch_steps": steps,
+            "epoch_s": epoch_s, "clustered_round_s": round_s,
+            "clustered_k": diag["k"],
+            "k1_launches": counts["clustered_agg"],
+            "k1_launches_per_round": 2 * tiles,
+            "k2_launches": counts["kmeans_assign"],
+            "k2_N": sorted({n for n, _ in k2_rows}),
+            "k2_M": sorted({m for _, m in k2_rows}),
+            "round_bound_k": bound, "rounds_by_net": rounds,
+            "max_rel_diff": worst, "cluster_s": cluster_s,
+            "label_kld_s": lk_s, "profile_epoch": prof_epoch,
+            "profile_round": prof_round,
+            "label_kld_k": lk["k"],
+            "k1_D": {net: plans[(net, None)].n_cols for net in ("G", "D")},
+            "S": plans[("G", None)].num_segments(bound)}
+    del tr
+    torch.cuda.empty_cache()
+    return line
+
+
+def time_population_kernels(gen, S: int, D: int) -> dict:
+    """K1 at the population's chunk tile [S, 64] @ [64, D_G] (checked
+    against its plain version, then timed beside torch.matmul) and K2 at
+    N=512, M=6 (checked on exact inputs, then timed)."""
+    import torch
+    from repro_torch.kernels import weighted_agg as wa
+    from repro_torch.kernels.ref import clustered_agg_ref
+    from repro_torch.models.gan import DISC_MIDDLE_FEATURES
+    dev = torch.device("cuda")
+    c = POP_CHUNK
+    w = torch.softmax(torch.randn((S, c), generator=gen, device=dev), 1)
+    theta = torch.randn((c, D), generator=gen, device=dev)
+    got, want = wa.clustered_agg_flat(w, theta), clustered_agg_ref(w, theta)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not err <= K1_RTOL * max(1.0, float(want.abs().max())):
+        raise AssertionError(f"K1 disagrees at the chunk tile S={S} c={c} "
+                             f"D={D}: {err}")
+    b_ms, b_by = bound(4.0 * (S * c + c * D + S * D), 2.0 * S * c * D)
+    k1 = {"shape": {"S": S, "K": c, "D": D}, "max_abs_err": err,
+          "ms": time_ms(lambda: wa.clustered_agg_flat(w, theta)),
+          "device_ms": device_ms_per_launch(
+              lambda: wa.clustered_agg_flat(w, theta),
+              "clustered_agg_kernel"),
+          "plain_ms": time_ms(lambda: clustered_agg_ref(w, theta)),
+          "library_ms": time_ms(lambda: torch.matmul(w, theta)),
+          "bound_ms": b_ms, "bound_by": b_by}
+    log(f"K1 population chunk tile S={S} K={c} D={D}: {k1['ms']:.4f} ms "
+        f"(device {k1['device_ms']}), plain {k1['plain_ms']:.4f}, matmul "
+        f"{k1['library_ms']:.4f}, bound {b_ms:.4f} ({b_by}); err {err:.2e}")
+    check_kmeans_assign(gen, POP_CLIENTS, 6, DISC_MIDDLE_FEATURES,
+                        "population_512")
+    k2 = time_kmeans_assign(gen, POP_CLIENTS, 6, DISC_MIDDLE_FEATURES)
+    return {"clustered_agg": k1, "kmeans_assign": k2}
+
+
 def monolithic_image(engine, req):
     """The oracle of one request: its client's full generator (personal
     head/tail rows and the server's middle layers) run unsplit in eval
@@ -798,11 +1129,27 @@ def time_slice(tr) -> dict:
             "clustered_round_s": t2 - t1}
 
 
+def busy_us(spans) -> float:
+    """Length of the union of (start, end) intervals: the time at least
+    one device activity ran."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s0, e0 in sorted(spans):
+        if cur_e is None or s0 > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    return total if cur_e is None else total + cur_e - cur_s
+
+
 def device_profile(fn, per: int = 1, top_n: int = 6) -> dict:
     """``fn`` once under torch.profiler: wall time, device busy time and
-    share (kernel time over wall time), kernel launches, and the kernels
-    that take the most device time; launches and times in the list are
-    per ``per`` (e.g. per training step)."""
+    share (the union of the device activities' intervals over wall
+    time), the summed activity time beside it (above the busy time when
+    activities overlap), the streams they ran on, kernel launches, and
+    the kernels that take the most device time; launches and times in
+    the list are per ``per`` (e.g. per training step)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -815,10 +1162,13 @@ def device_profile(fn, per: int = 1, top_n: int = 6) -> dict:
         wall = time.perf_counter() - t0
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in dev)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = busy_us((e.time_range.start, e.time_range.end)
+                   for e in events) / 1e6
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:top_n]
-    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
-            "busy_share": busy_us / 1e6 / wall,
+    return {"wall_s": wall, "device_busy_s": busy, "busy_share": busy / wall,
+            "device_sum_s": sum(e.self_device_time_total for e in dev) / 1e6,
+            "streams": len({e.device_resource_id for e in events}),
             "kernels": sum(e.count for e in dev) / per,
             "top": [(e.key[:70], e.self_device_time_total / 1e3 / per,
                      e.count // per) for e in top]}
@@ -866,9 +1216,11 @@ def main() -> int:
 
     wa.launches = 0
     km.launches = 0
+    ckpt = os.path.join(ROOT, "build", "slice.ckpt")
     t0 = time.perf_counter()
     tr = train_main(["--arch", "huscf-gan", "--epochs", "6",
-                     "--federate-every", "2", "--device", "cuda"])
+                     "--federate-every", "2", "--device", "cuda",
+                     "--ckpt", ckpt])
     torch.cuda.synchronize()
     slice_s = time.perf_counter() - t0
     counts = {"clustered_agg": wa.launches, "kmeans_assign": km.launches}
@@ -879,14 +1231,25 @@ def main() -> int:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "main path")
 
+    ckpt_leaves = check_checkpoint(tr, ckpt)
     check_slice(tr)
     check_cpu_agreement()
     gan_serve = check_gan_serving(serve_main)
     lm_serve = check_lm_serving(serve_main)
+    t0 = time.perf_counter()
+    population = run_population(train_main)
+    population["phase_s"] = time.perf_counter() - t0
     kernels = check_kernels(tr)
     for k in kernels:
         k["launches"] = counts[k["name"]]
     gen = torch.Generator(device="cuda").manual_seed(1)
+    pop_k = time_population_kernels(gen, population["S"],
+                                    population["k1_D"]["G"])
+    pop_launches = {"clustered_agg": population["k1_launches"],
+                    "kmeans_assign": population["k2_launches"]}
+    for k in kernels:
+        k["population"] = dict(pop_k[k["name"]],
+                               launches=pop_launches[k["name"]])
     attn_err = check_attention(gen)
     lm_cfg = SplitLMConfig(s_max=lm_serve["prompt"] + lm_serve["gen"] + 16)
     attn_times = time_attention(gen, lm_cfg, lm_serve["batch"],
@@ -911,8 +1274,10 @@ def main() -> int:
                    "cuts": sorted({c.as_tuple() for c in tr.cuts}),
                    "groups": len(tr.groups), "ga_latency": tr.ga_latency,
                    "k1_D": {p.net: p.n_cols for p in tr._fed_plans.values()},
-                   "rounds": [d["mode"] for d in tr.fed_log]})
+                   "rounds": [d["mode"] for d in tr.fed_log],
+                   "checkpoint_leaves": ckpt_leaves})
     print(json.dumps({"slice": timing}), flush=True)
+    print(json.dumps({"population": population}), flush=True)
     print(json.dumps({"serve": {"gan": gan_serve, "lm": lm_serve}}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

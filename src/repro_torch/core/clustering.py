@@ -12,11 +12,21 @@ The reference seeds k-means++ from ``jax.random.categorical``, which
 torch cannot reproduce. ``kmeans`` and ``cluster_activations``
 therefore take optional initial centres (one ``[k, D]`` per candidate
 k); without them the seeding draws from a ``torch.Generator``.
+
+The reference's host numpy path (the trainer's ``fused_cluster=False``
+and label-KLD rounds) is copied line for line below, with an ``_np``
+suffix where a name collides with the device path:
+``kmeans_pp_init_np``, ``kmeans_np``, ``silhouette_np``,
+``canonicalize_labels_np``, ``ClusterResult``, ``cluster_activations_np``.
+Seeded from numpy, it gives the reference's labels, k and silhouette
+exactly.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -180,3 +190,136 @@ def cluster_activations(acts: torch.Tensor, *, k: Optional[int] = None,
     if sil < min_silhouette:
         return torch.zeros(K, dtype=torch.int32, device=acts.device), 1, 0.0
     return cands[best][0].to(torch.int32), best + 2, sil
+
+
+# ---------------------------------------------------------------------------
+# host path (numpy), the reference's oracle
+# ---------------------------------------------------------------------------
+
+def kmeans_pp_init_np(x: np.ndarray, k: int, rng: np.random.Generator
+                      ) -> np.ndarray:
+    n = x.shape[0]
+    centers = [x[rng.integers(n)]]
+    for _ in range(1, k):
+        d2 = np.min(((x[:, None, :] - np.array(centers)[None]) ** 2).sum(-1), 1)
+        total = d2.sum()
+        if total <= 1e-12:
+            centers.append(x[rng.integers(n)])
+            continue
+        probs = d2 / total
+        centers.append(x[rng.choice(n, p=probs)])
+    return np.array(centers)
+
+
+def kmeans_np(x: np.ndarray, k: int, *, iters: int = 50, seed: int = 0
+              ) -> Tuple[np.ndarray, np.ndarray, float]:
+    """Returns (labels [N], centers [k, D], inertia)."""
+    rng = np.random.default_rng(seed)
+    if k <= 1:
+        center = x.mean(0, keepdims=True)
+        inertia = float(((x - center) ** 2).sum())
+        return np.zeros(x.shape[0], np.int32), center, inertia
+    centers = kmeans_pp_init_np(x, k, rng)
+    labels = np.zeros(x.shape[0], np.int32)
+    for it in range(iters):
+        d2 = ((x[:, None, :] - centers[None]) ** 2).sum(-1)
+        new_labels = d2.argmin(1).astype(np.int32)
+        if np.array_equal(new_labels, labels) and it > 0:
+            break
+        labels = new_labels
+        empties = []
+        for c in range(k):
+            mask = labels == c
+            if mask.any():
+                centers[c] = x[mask].mean(0)
+            else:
+                empties.append(c)
+        if empties:
+            # re-seed empty clusters at distinct farthest points from the
+            # updated non-empty centres
+            valid = [c for c in range(k) if c not in empties]
+            d2u = ((x[:, None, :] - centers[valid][None]) ** 2
+                   ).sum(-1).min(1)
+            for c in empties:
+                i = int(d2u.argmax())
+                centers[c] = x[i]
+                d2u[i] = -np.inf
+    inertia = float(((x - centers[labels]) ** 2).sum())
+    return labels, centers, inertia
+
+
+def silhouette_np(x: np.ndarray, labels: np.ndarray) -> float:
+    """Mean silhouette coefficient (euclidean); singleton clusters score
+    0, and -1.0 when fewer than two clusters appear or n < 3."""
+    n = x.shape[0]
+    uniq = np.unique(labels)
+    if uniq.size < 2 or n < 3:
+        return -1.0
+    d = np.sqrt(np.maximum(((x[:, None, :] - x[None]) ** 2).sum(-1), 0.0))
+    s = np.zeros(n)
+    for i in range(n):
+        same = labels == labels[i]
+        same[i] = False
+        if not same.any():          # singleton cluster
+            continue
+        a = d[i][same].mean()
+        bs = [d[i][labels == c].mean() for c in uniq if c != labels[i]]
+        b = min(bs)
+        s[i] = 0.0 if max(a, b) == 0 else (b - a) / max(a, b)
+    return float(s.mean())
+
+
+def canonicalize_labels_np(labels: np.ndarray
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+    """Relabel clusters to first-occurrence order. Returns (canonical
+    labels, old->new id map over [0, labels.max()])."""
+    labels = np.asarray(labels)
+    uniq, first = np.unique(labels, return_index=True)
+    order = np.argsort(first)            # uniq[order] = appearance order
+    remap = np.zeros(int(uniq.max()) + 1, labels.dtype)
+    remap[uniq[order]] = np.arange(order.size, dtype=labels.dtype)
+    return remap[labels], remap
+
+
+@dataclasses.dataclass
+class ClusterResult:
+    labels: np.ndarray
+    centers: np.ndarray
+    k: int
+    silhouette: float
+
+
+def cluster_activations_np(acts: np.ndarray, *, k: Optional[int] = None,
+                           k_max: int = 6, seed: int = 0,
+                           min_silhouette: float = 0.15) -> ClusterResult:
+    """Cluster client activation vectors [K_clients, D] on the host: with
+    ``k`` given it is used; otherwise k is chosen by silhouette over
+    [2, bound], accepting k = 1 below ``min_silhouette``."""
+    mu, sd = acts.mean(0), acts.std(0) + 1e-8
+    z = (acts - mu) / sd
+
+    def _canonical(labels, centers):
+        new_labels, remap = canonicalize_labels_np(labels)
+        # centre rows of appearing clusters move to their new ids; rows
+        # of empty clusters land past them and are never referenced
+        new = centers.copy()
+        for old in np.unique(labels):
+            new[remap[old]] = centers[old]
+        return new_labels, new
+
+    if k is not None:
+        labels, centers, _ = kmeans_np(z, k, seed=seed)
+        labels, centers = _canonical(labels, centers)
+        return ClusterResult(labels, centers, k, silhouette_np(z, labels))
+    best: Optional[ClusterResult] = None
+    upper = k_selection_bound(acts.shape[0], k_max=k_max)
+    for kk in range(2, upper + 1):
+        labels, centers, _ = kmeans_np(z, kk, seed=seed)
+        labels, centers = _canonical(labels, centers)
+        sil = silhouette_np(z, labels)
+        if best is None or sil > best.silhouette:
+            best = ClusterResult(labels, centers, kk, sil)
+    if best is None or best.silhouette < min_silhouette:
+        labels, centers, _ = kmeans_np(z, 1, seed=seed)
+        return ClusterResult(labels, centers, 1, 0.0)
+    return best

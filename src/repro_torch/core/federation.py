@@ -1,5 +1,5 @@
 """Clustered, KLD-weighted, layer-wise federated aggregation — Eq. (16)
-(port of the dense single-device round of ``repro.core.federation``).
+(port of the single-device rounds of ``repro.core.federation``).
 
 Client-side segments are aggregated within clusters and layer-wise over
 each layer's owners: for layer l and cluster C, every client in C that
@@ -9,15 +9,33 @@ receive the aggregate.
 A cached ``FederationPlan`` packs every profile group's stacked client
 segments into one ``theta [K, D]`` float32 buffer per net (one row per
 client copy, one column run per ownable layer, zero where a cut does not
-own the layer; leaves in sorted-key order). The round is then
+own the layer; leaves in sorted-key order). The dense round is then
 ``A @ theta`` with ``A [S, K]`` one normalized reduce row per (layer,
 cluster) segment, S padded to a multiple of 8, followed by a gather of
 each copy's segment row and an unflatten. With ``use_kernel`` the
 product is kernel K1.
 
-The chunked stream, mesh sharding and cohorts of the reference are not
-ported yet (ROADMAP); ``chunk_size``, ``mesh`` and ``cohort_mask``
-raise.
+Chunk-streamed round (``chunk_size=``, ``FederationPlan.aggregate_chunked``):
+the dense ``[K, D]`` buffer is never built. Each profile group's rows
+stream in chunks of c clients; every chunk contracts one ``A_c [S, c] @
+theta_c [c, D]`` tile (K1 with ``use_kernel``) into a running ``(acc
+[S, D], mass [S])``, and one normalize at the end divides them out. The
+working set is O(c + clusters), independent of the client count, and
+the re-associated float32 sums agree with the dense round within
+tolerance, not bit for bit. The reference pads group sizes to
+power-of-two buckets so that JAX can share compiled programs across
+populations; padded rows add exact zeros, so the port, which compiles
+nothing, streams the actual rows in the same order (groups, then
+chunks, then rows within a chunk).
+
+Cohort rounds (``cohort_mask=``, [K] bool): the weights must already be
+renormalized over the cohort (``kld.cohort_federation_weights``, zero
+outside it); the uniform fallback of a zero-mass segment covers its
+participating members only, and every copy of a non-member keeps its
+pre-round values bit for bit (the recv-select of the unflatten), as
+does every copy of a (layer, cluster) whose cohort is empty.
+
+Mesh sharding (M10) is not ported; ``mesh=`` raises.
 """
 from __future__ import annotations
 
@@ -59,26 +77,29 @@ class _SegmentEntry:
     leaves: Tuple[_LeafSpec, ...]
 
 
-def _unsupported(chunk_size=None, mesh=None, cohort_mask=None) -> None:
-    if chunk_size is not None:
-        raise NotImplementedError("chunk-streamed aggregation is not ported "
-                                  "yet (ROADMAP M6c, chunked stream)")
+def _unsupported(mesh=None) -> None:
     if mesh is not None:
         raise NotImplementedError("mesh-sharded federation is not ported "
                                   "(ROADMAP M10, mesh code)")
-    if cohort_mask is not None:
-        raise NotImplementedError("cohort rounds are not ported yet "
-                                  "(ROADMAP M6b, cohorts/registry)")
+
+
+def _padded_segments(n_seg: int) -> int:
+    return max(_SEGMENT_PAD, -(-n_seg // _SEGMENT_PAD) * _SEGMENT_PAD)
 
 
 class FederationPlan:
     """Flattening/aggregation plan for one (net, topology), built once
-    from a template of the client params and reused every round."""
+    from a template of the client params and reused every round.
+    ``chunk_size`` enables ``aggregate_chunked``."""
 
     def __init__(self, groups: Sequence[ProfileGroup], net: str,
-                 n_layers: int, template: Dict[str, Dict[str, Any]]):
+                 n_layers: int, template: Dict[str, Dict[str, Any]],
+                 chunk_size: Optional[int] = None):
         self.net = net
         self.n_layers = n_layers
+        if chunk_size is not None and int(chunk_size) < 1:
+            raise ValueError(f"chunk_size {chunk_size} must be >= 1")
+        self.chunk_size = None if chunk_size is None else int(chunk_size)
         self._group_rows: Dict[str, Tuple[int, int]] = {}
         self.row_cids: List[int] = []
         row = 0
@@ -138,24 +159,26 @@ class FederationPlan:
             self._copy_layer_pos[e.sid0:e.sid1] = layer_pos[e.layer]
             self._copy_cid[e.sid0:e.sid1] = cids_arr[e.row0:e.row1]
         self._owned = owned
+        self._owned_pos = {gname: [layer_pos[l] for l in ls]
+                           for gname, ls in owned.items()}
         self._groups_order = [g.name for g in groups]
         self._index_cache: Dict[torch.device, Tuple] = {}
 
     def _indices(self, device: torch.device):
-        """Per-layer owner rows/cids and per-copy maps as device tensors,
-        uploaded once per device."""
+        """Per-layer owner rows/cids, per-copy maps and the row -> client
+        id map as device tensors, uploaded once per device."""
         idx = self._index_cache.get(device)
         if idx is None:
             def t(a):
                 return torch.as_tensor(a, dtype=torch.int64, device=device)
             idx = self._index_cache[device] = (
                 [(l, t(rows), t(cids)) for l, rows, cids in self._layer_rows],
-                t(self._copy_layer_pos), t(self._copy_cid))
+                t(self._copy_layer_pos), t(self._copy_cid),
+                t(np.asarray(self.row_cids, np.int64)))
         return idx
 
     def num_segments(self, num_clusters: int) -> int:
-        n_seg = len(self._layer_rows) * int(num_clusters)
-        return max(_SEGMENT_PAD, -(-n_seg // _SEGMENT_PAD) * _SEGMENT_PAD)
+        return _padded_segments(len(self._layer_rows) * int(num_clusters))
 
     # -- host weight matrix (Eq. 15/16 block diagonal) ----------------------
     def weight_segments(self, weights: np.ndarray, cluster_labels: np.ndarray
@@ -182,36 +205,40 @@ class FederationPlan:
             seg_ids[e.sid0:e.sid1] = [
                 seg_of[(e.layer, int(cluster_labels[cid]))]
                 for cid in row_cids]
-        S = max(_SEGMENT_PAD,
-                -(-len(rows_a) // _SEGMENT_PAD) * _SEGMENT_PAD)
-        A = np.zeros((S, self.n_rows), np.float32)
+        A = np.zeros((_padded_segments(len(rows_a)), self.n_rows), np.float32)
         if rows_a:
             A[:len(rows_a)] = np.stack(rows_a)
         return A, seg_ids
 
     # -- device weight matrix -------------------------------------------------
     def device_weight_segments(self, weights: torch.Tensor,
-                               labels: torch.Tensor, num_clusters: int
+                               labels: torch.Tensor, num_clusters: int,
+                               participation: Optional[torch.Tensor] = None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(A [S, K], seg_ids) from device weights/labels: one segment
         row per (layer, cluster id < num_clusters), so S is fixed by the
         static bound. Empty segments stay zero and are never gathered;
-        a present segment whose weights sum to zero goes uniform."""
+        a present segment whose weights sum to zero goes uniform over
+        its participating members (``participation`` [K] 0/1, default
+        all ones), and one with no participant gets a zero row."""
         C = int(num_clusters)
-        layer_rows, copy_lpos, copy_cid = self._indices(weights.device)
+        layer_rows, copy_lpos, copy_cid, _ = self._indices(weights.device)
         A = torch.zeros((self.num_segments(C), self.n_rows),
                         dtype=torch.float32, device=weights.device)
         w = weights.float()
+        part = (torch.ones_like(w) if participation is None
+                else participation.float())
         lab_all = labels.long()
         for li, (_, rows, cids) in enumerate(layer_rows):
             onehot = F.one_hot(lab_all[cids], C).float()          # [R, C]
             raw = onehot * w[cids][:, None]
             denom = raw.sum(0)
-            cnt = onehot.sum(0)
+            mem = onehot * part[cids][:, None]
+            cnt = mem.sum(0)
             blk = torch.where(denom > 0,
                               raw / torch.where(denom > 0, denom,
                                                 torch.ones_like(denom)),
-                              onehot / torch.clamp_min(cnt, 1.0))
+                              mem / torch.clamp_min(cnt, 1.0))
             A[li * C:(li + 1) * C, rows] = blk.T
         seg_ids = copy_lpos * C + lab_all[copy_cid]
         return A, seg_ids
@@ -235,41 +262,181 @@ class FederationPlan:
             bufs.append(torch.cat(parts, 1))
         return torch.cat(bufs, 0)
 
-    def unflatten(self, agg: torch.Tensor, seg_ids: torch.Tensor
+    def unflatten(self, agg: torch.Tensor, seg_ids: torch.Tensor,
+                  originals: Optional[Dict[str, Dict[str, Any]]] = None,
+                  recv: Optional[torch.Tensor] = None
                   ) -> Dict[str, Dict[str, Any]]:
+        """Gather each copy's segment row into new stacked trees.
+        ``recv`` ([n_copies] bool, with ``originals`` the pre-round
+        params): copies of clients outside the round's cohort keep their
+        original leaves instead of a segment aggregate they took no part
+        in."""
         out: Dict[str, Dict[str, Any]] = {}
         for e in self.entries:
+            k = e.row1 - e.row0
             block = agg[seg_ids[e.sid0:e.sid1], e.col0:e.col0 + e.width]
             offs = np.cumsum([0] + [s.size for s in e.leaves])
-            tree = tree_from_items(
-                (s.path, block[:, o:o + s.size]
-                 .reshape((e.row1 - e.row0,) + s.shape))
-                for s, o in zip(e.leaves, offs))
-            out.setdefault(e.gname, {})[str(e.layer)] = tree
+            orig = (None if recv is None else
+                    dict(tree_items(originals[e.gname][str(e.layer)])))
+            items = []
+            for s, o in zip(e.leaves, offs):
+                leaf = block[:, o:o + s.size].reshape((k,) + s.shape)
+                if recv is not None:
+                    keep = recv[e.sid0:e.sid1].reshape(
+                        (k,) + (1,) * len(s.shape))
+                    leaf = torch.where(keep, leaf, orig[s.path])
+                items.append((s.path, leaf))
+            out.setdefault(e.gname, {})[str(e.layer)] = tree_from_items(items)
         return out
 
-    # -- the round ----------------------------------------------------------------
+    def _recv_args(self, net_params, cohort_mask, copy_cid):
+        """(originals, recv) for ``unflatten``: the per-copy participation
+        of a cohort round, nothing for a full round."""
+        if cohort_mask is None:
+            return None, None
+        return net_params, cohort_mask.bool()[copy_cid]
+
+    # -- the dense round ----------------------------------------------------------
     def _reduce(self, A: torch.Tensor, theta: torch.Tensor,
                 use_kernel: bool) -> torch.Tensor:
         return kops.clustered_agg(A, theta) if use_kernel else A @ theta
 
     def aggregate(self, net_params: Dict[str, Dict[str, Any]],
                   A: np.ndarray, seg_ids: np.ndarray,
-                  use_kernel: bool = False) -> Dict[str, Dict[str, Any]]:
+                  use_kernel: bool = False,
+                  cohort_mask: Optional[np.ndarray] = None
+                  ) -> Dict[str, Dict[str, Any]]:
+        """Round from the host weight matrix; ``cohort_mask`` ([K] bool,
+        host) restores non-members' copies."""
         device = _params_device(net_params)
-        theta = self.flatten(net_params, device)
+        _, _, copy_cid, _ = self._indices(device)
         A_t = torch.as_tensor(A, dtype=torch.float32, device=device)
-        agg = self._reduce(A_t, theta, use_kernel)
-        return self.unflatten(agg, torch.as_tensor(seg_ids, device=device))
+        agg = self._reduce(A_t, self.flatten(net_params, device), use_kernel)
+        mask = (None if cohort_mask is None else
+                torch.as_tensor(np.asarray(cohort_mask, bool), device=device))
+        return self.unflatten(agg, torch.as_tensor(seg_ids, device=device),
+                              *self._recv_args(net_params, mask, copy_cid))
 
     def aggregate_device(self, net_params: Dict[str, Dict[str, Any]],
                          weights: torch.Tensor, labels: torch.Tensor,
-                         num_clusters: int, use_kernel: bool = False
+                         num_clusters: int, use_kernel: bool = False,
+                         cohort_mask: Optional[torch.Tensor] = None
                          ) -> Dict[str, Dict[str, Any]]:
-        A, seg_ids = self.device_weight_segments(weights, labels,
-                                                 num_clusters)
-        theta = self.flatten(net_params, weights.device)
-        return self.unflatten(self._reduce(A, theta, use_kernel), seg_ids)
+        """Round from device weights/labels (label ids < the static
+        ``num_clusters``). With ``cohort_mask`` ([K] bool, weights
+        renormalized over the cohort) non-members keep their params."""
+        _, _, copy_cid, _ = self._indices(weights.device)
+        A, seg_ids = self.device_weight_segments(
+            weights, labels, num_clusters, participation=cohort_mask)
+        agg = self._reduce(A, self.flatten(net_params, weights.device),
+                           use_kernel)
+        return self.unflatten(agg, seg_ids, *self._recv_args(
+            net_params, cohort_mask, copy_cid))
+
+    # -- the chunk-streamed round -----------------------------------------------
+    def _accumulate_chunks(self, net_params, w_all, lab_all, part_all,
+                           zero_seg, num_clusters: int, use_kernel: bool
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Stream every group's rows in chunks of ``chunk_size``, adding
+        one ``A_c [S, c] @ theta_c [c, D]`` tile per chunk into ``(acc
+        [S, D], mass [S])`` in place. ``theta_c`` and ``A_c`` are
+        allocated once per round: columns of layers the group does not
+        own and the rows past a tail chunk's end are zero, and so are
+        those rows' weights. ``zero_seg`` [S] marks segments whose raw
+        weight mass is zero but that have participating members: their
+        members switch to their ``part_all`` value (1 in the cohort, 0
+        outside), the dense round's uniform-over-participants
+        fallback."""
+        C = int(num_clusters)
+        c = self.chunk_size
+        dev = w_all.device
+        _, _, _, row_cids = self._indices(dev)
+        S = zero_seg.shape[0]
+        acc = torch.zeros((S, self.n_cols), dtype=torch.float32, device=dev)
+        mass = torch.zeros(S, dtype=torch.float32, device=dev)
+        theta_c = torch.empty((c, self.n_cols), dtype=torch.float32,
+                              device=dev)
+        A_c = torch.empty((S, c), dtype=torch.float32, device=dev)
+        cols = torch.arange(c, device=dev)
+        for gname in self._groups_order:
+            r0, r1 = self._group_rows[gname]
+            Kg = r1 - r0
+            if Kg == 0:
+                continue
+            leaves = []                      # (column offset, [Kg, size])
+            for l, (c0, w) in sorted(self._col_runs.items()):
+                if l in self._owned[gname]:
+                    for _, x in tree_items(net_params[gname][str(l)]):
+                        flat = x.reshape(Kg, -1)
+                        leaves.append((c0, flat))
+                        c0 += flat.shape[1]
+                else:
+                    theta_c[:, c0:c0 + w].zero_()
+            for lo in range(0, Kg, c):
+                r = min(c, Kg - lo)
+                for off, flat in leaves:
+                    theta_c[:r, off:off + flat.shape[1]].copy_(flat[lo:lo + r])
+                if r < c:
+                    theta_c[r:].zero_()
+                cid_c = row_cids[r0 + lo:r0 + lo + r]
+                lab_c = lab_all[cid_c]
+                w_c, fb_c = w_all[cid_c], part_all[cid_c]
+                A_c.zero_()
+                for li in self._owned_pos[gname]:
+                    seg = li * C + lab_c
+                    A_c[seg, cols[:r]] = torch.where(zero_seg[seg], fb_c, w_c)
+                acc += self._reduce(A_c, theta_c, use_kernel)
+                mass += A_c.sum(1)
+        return acc, mass
+
+    def aggregate_chunked(self, net_params: Dict[str, Dict[str, Any]],
+                          weights: torch.Tensor, labels: torch.Tensor,
+                          num_clusters: int, use_kernel: bool = False,
+                          cohort_mask: Optional[torch.Tensor] = None
+                          ) -> Dict[str, Dict[str, Any]]:
+        """Chunk-streamed round (the plan must be built with
+        ``chunk_size=``): the semantics of ``aggregate_device``, but the
+        dense ``[K, D]`` buffer is never built. Partial sums and weight
+        masses accumulate over the chunks and one normalize at the end
+        divides them out (in place in ``acc``)."""
+        if self.chunk_size is None:
+            raise ValueError("plan was built without chunk_size; pass "
+                             "chunk_size= to get_federation_plan")
+        C = int(num_clusters)
+        dev = weights.device
+        _, copy_lpos, copy_cid, _ = self._indices(dev)
+        S = self.num_segments(C)
+        w_all = weights.float()
+        lab_all = labels.long()
+        part = (torch.ones_like(w_all) if cohort_mask is None
+                else cohort_mask.float())
+        seg_of_copy = copy_lpos * C + lab_all[copy_cid]
+        zeros = torch.zeros(S, dtype=torch.float32, device=dev)
+        raw = zeros.index_add(0, seg_of_copy, w_all[copy_cid])
+        cnt = zeros.index_add(0, seg_of_copy, part[copy_cid])
+        zero_seg = (raw <= 0) & (cnt > 0)
+        acc, mass = self._accumulate_chunks(net_params, w_all, lab_all, part,
+                                            zero_seg, C, use_kernel)
+        agg = acc.div_(torch.clamp_min(mass, 1e-20)[:, None])
+        return self.unflatten(agg, seg_of_copy, *self._recv_args(
+            net_params, cohort_mask, copy_cid))
+
+    # -- memory envelopes ---------------------------------------------------------
+    def dense_buffer_bytes(self) -> int:
+        """float32 bytes of the dense ``theta [K, D]`` flat client buffer
+        of the dense rounds (the O(clients) term the chunk stream
+        removes)."""
+        return 4 * self.n_rows * self.n_cols
+
+    def chunked_buffer_bytes(self, num_clusters: int) -> int:
+        """float32 bytes of the chunk stream's working set: one ``theta_c
+        [c, D]`` and ``A_c [S, c]`` tile plus ``(acc [S, D], mass [S])``,
+        O(chunk + clusters), independent of the client count."""
+        if self.chunk_size is None:
+            raise ValueError("plan was built without chunk_size")
+        S = self.num_segments(num_clusters)
+        c = self.chunk_size
+        return 4 * (c * self.n_cols + S * c + S * self.n_cols + S)
 
 
 def _params_device(net_params) -> torch.device:
@@ -280,7 +447,8 @@ def _params_device(net_params) -> torch.device:
 
 
 def _plan_key(groups: Sequence[ProfileGroup], net: str, n_layers: int,
-              template: Dict[str, Dict[str, Any]]) -> Tuple:
+              template: Dict[str, Dict[str, Any]],
+              chunk_size: Optional[int] = None) -> Tuple:
     layout = tuple(
         (g.name, tuple(
             (l, tuple((path, tuple(x.shape)) for path, x in tree_items(tree)))
@@ -288,15 +456,17 @@ def _plan_key(groups: Sequence[ProfileGroup], net: str, n_layers: int,
         for g in groups)
     return (net, n_layers, tuple(
         (g.name, g.cut.as_tuple(), tuple(g.client_ids)) for g in groups),
-        layout)
+        layout, chunk_size)
 
 
 def get_federation_plan(groups: Sequence[ProfileGroup], net: str,
                         n_layers: int, template: Dict[str, Dict[str, Any]],
-                        plan_cache: Dict) -> FederationPlan:
-    key = _plan_key(groups, net, n_layers, template)
+                        plan_cache: Dict,
+                        chunk_size: Optional[int] = None) -> FederationPlan:
+    key = _plan_key(groups, net, n_layers, template, chunk_size)
     if key not in plan_cache:
-        plan_cache[key] = FederationPlan(groups, net, n_layers, template)
+        plan_cache[key] = FederationPlan(groups, net, n_layers, template,
+                                         chunk_size=chunk_size)
     return plan_cache[key]
 
 
@@ -312,9 +482,13 @@ def federate_client_params(groups: Sequence[ProfileGroup],
                            ) -> Dict[str, Dict[str, Dict[str, Any]]]:
     """Aggregate client-held layers cluster-wise from host weights and
     labels (indexed by global client id). client_params: {group.name:
-    {net: {str(layer): stacked tree}}}. Returns a new client_params with
-    the aggregated copies broadcast back."""
-    _unsupported(chunk_size, mesh, cohort_mask)
+    {net: {str(layer): stacked tree}}}. ``chunk_size=c`` streams the
+    round in c-client chunks; ``cohort_mask`` ([n_clients] bool) runs a
+    sampled-cohort round, with ``weights`` already renormalized over the
+    cohort (``kld.cohort_federation_weights_np``, zero outside it).
+    Returns a new client_params with the aggregated copies broadcast
+    back."""
+    _unsupported(mesh)
     n_layers = n_layers or N_LAYERS
     plan_cache = {} if plan_cache is None else plan_cache
     weights = np.asarray(weights)
@@ -322,11 +496,26 @@ def federate_client_params(groups: Sequence[ProfileGroup],
     out = {gname: dict(nets) for gname, nets in client_params.items()}
     for net, n_lay in n_layers.items():
         template = {g.name: client_params[g.name][net] for g in groups}
-        plan = get_federation_plan(groups, net, n_lay, template, plan_cache)
+        plan = get_federation_plan(groups, net, n_lay, template, plan_cache,
+                                   chunk_size=chunk_size)
         if plan.n_rows == 0:
             continue
-        A, seg_ids = plan.weight_segments(weights, cluster_labels)
-        new_net = plan.aggregate(template, A, seg_ids, use_kernel=use_kernel)
+        if chunk_size is not None:
+            device = _params_device(template)
+            new_net = plan.aggregate_chunked(
+                template,
+                torch.as_tensor(weights, dtype=torch.float32, device=device),
+                torch.as_tensor(cluster_labels, dtype=torch.int64,
+                                device=device),
+                num_clusters=int(cluster_labels.max()) + 1,
+                use_kernel=use_kernel,
+                cohort_mask=None if cohort_mask is None else torch.as_tensor(
+                    np.asarray(cohort_mask, bool), device=device))
+        else:
+            A, seg_ids = plan.weight_segments(weights, cluster_labels)
+            new_net = plan.aggregate(template, A, seg_ids,
+                                     use_kernel=use_kernel,
+                                     cohort_mask=cohort_mask)
         for g in groups:
             if g.name in new_net:
                 out[g.name][net] = new_net[g.name]
@@ -340,23 +529,33 @@ def federate_client_params_device(
         num_clusters: int, n_layers: Dict[str, int] = None,
         use_kernel: bool = False, plan_cache: Optional[Dict] = None,
         chunk_size: Optional[int] = None, mesh: Any = None,
-        cohort_mask: Optional[torch.Tensor] = None
+        cohort_mask: Optional[torch.Tensor] = None,
+        cohort_size: Optional[int] = None
         ) -> Dict[str, Dict[str, Dict[str, Any]]]:
     """Twin of ``federate_client_params`` taking device weights and
     labels (e.g. straight out of clustering); the weight matrix is
     built on the device. ``num_clusters`` is the static label-id bound
-    (``clustering.k_selection_bound``)."""
-    _unsupported(chunk_size, mesh, cohort_mask)
+    (``clustering.k_selection_bound``). ``cohort_mask`` ([K] bool device
+    tensor, weights renormalized over the cohort) runs a sampled-cohort
+    round and comes with its ``cohort_size``, the number of clients
+    sampled (the reference keys its compiled programs on it; here it
+    only has to come with the mask)."""
+    _unsupported(mesh)
+    if (cohort_mask is None) != (cohort_size is None):
+        raise ValueError("cohort_mask and cohort_size come together")
     n_layers = n_layers or N_LAYERS
     plan_cache = {} if plan_cache is None else plan_cache
     out = {gname: dict(nets) for gname, nets in client_params.items()}
     for net, n_lay in n_layers.items():
         template = {g.name: client_params[g.name][net] for g in groups}
-        plan = get_federation_plan(groups, net, n_lay, template, plan_cache)
+        plan = get_federation_plan(groups, net, n_lay, template, plan_cache,
+                                   chunk_size=chunk_size)
         if plan.n_rows == 0:
             continue
-        new_net = plan.aggregate_device(template, weights, cluster_labels,
-                                        num_clusters, use_kernel=use_kernel)
+        aggregate = (plan.aggregate_device if chunk_size is None
+                     else plan.aggregate_chunked)
+        new_net = aggregate(template, weights, cluster_labels, num_clusters,
+                            use_kernel=use_kernel, cohort_mask=cohort_mask)
         for g in groups:
             if g.name in new_net:
                 out[g.name][net] = new_net[g.name]
@@ -372,10 +571,16 @@ def fedavg_uniform(groups: Sequence[ProfileGroup],
                    cohort_mask: Optional[np.ndarray] = None
                    ) -> Dict[str, Dict[str, Dict[str, Any]]]:
     """Vanilla FedAvg (the warm-up rounds, paper §4.5): one global
-    cluster, weights proportional to dataset size."""
-    _unsupported(chunk_size, mesh, cohort_mask)
+    cluster, weights proportional to dataset size. With ``cohort_mask``
+    the sizes renormalize over the cohort and non-members sit the round
+    out."""
+    _unsupported(mesh)
     sizes = np.asarray(sizes, np.float64)
+    if cohort_mask is not None:
+        sizes = sizes * np.asarray(cohort_mask, bool)
     return federate_client_params(groups, client_params, sizes / sizes.sum(),
                                   np.zeros(len(sizes), np.int64),
                                   n_layers=n_layers, use_kernel=use_kernel,
-                                  plan_cache=plan_cache)
+                                  plan_cache=plan_cache,
+                                  chunk_size=chunk_size,
+                                  cohort_mask=cohort_mask)

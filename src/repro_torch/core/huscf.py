@@ -9,18 +9,27 @@ PyTorch (port of ``repro.core.huscf``).
 
 Stages 3 and 4 run on the device; with ``use_kernel`` (the default
 here) the assignment step of k-means is kernel K2 and every
-aggregation is kernel K1.
+aggregation (every chunk tile of a chunk-streamed round) is kernel K1.
+``fused_cluster=False`` and ``federate(use_label_kld=True)`` (the
+FeGAN-style label-histogram KLD, paper §6.3) run the reference's host
+numpy clustering and weights instead; the aggregation stays on the
+device.
+
+Population scale: ``cohort_size`` samples that many of the registered
+clients (``core.registry``) per round from the trainer's own cohort
+generator, and ``agg_chunk`` streams every aggregation in client chunks
+instead of the dense ``[K, D]`` buffer.
 
 ``generate`` runs the generator's split program in eval mode.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: cohorts, chunked aggregation, online re-cut and churn,
-mesh-sharded federation, the host clustering path
-(``fused_cluster=False``) and label-histogram KLD.
+ROADMAP item: online re-cut and churn (M9b) and mesh-sharded federation
+(M10).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,13 +37,16 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import kld as kld_mod
-from repro_torch.core.clustering import cluster_activations, k_selection_bound
-from repro_torch.core.federation import (N_LAYERS,
+from repro_torch.core.clustering import (cluster_activations,
+                                         cluster_activations_np,
+                                         k_selection_bound)
+from repro_torch.core.federation import (N_LAYERS, federate_client_params,
                                          federate_client_params_device,
                                          fedavg_uniform)
 from repro_torch.core.genetic import GAConfig, optimize_cuts
 from repro_torch.core.latency import (Cut, DeviceProfile, PAPER_DEVICES,
                                       PAPER_SERVER, huscf_iteration_latency)
+from repro_torch.core.registry import ClientRegistry
 from repro_torch.core.segments import compile_split_program, make_apply
 from repro_torch.core.splitting import group_by_profile, server_union_span
 from repro_torch.data.partition import ClientSpec
@@ -60,25 +72,20 @@ class HuSCFConfig:
     use_kernel: bool = True          # kernels K1/K2 (the reference: False)
     steps_per_epoch: Optional[int] = None
     warmup_fed_rounds: int = 2       # vanilla FedAvg rounds (paper §4.5)
-    fused_cluster: bool = True       # False (host numpy path): ROADMAP M5b
-    cohort_size: Optional[int] = None        # ROADMAP M6b, cohorts
-    agg_chunk: Optional[int] = None          # ROADMAP M6c, chunked stream
+    fused_cluster: bool = True       # False: host numpy stages 3+4
+    cohort_size: Optional[int] = None        # clients sampled per round
+    agg_chunk: Optional[int] = None          # chunk-streamed aggregation
     reoptimize_every: Optional[int] = None   # ROADMAP M9b, online re-cut
 
 
 def _check_supported(cfg: HuSCFConfig) -> None:
-    if cfg.cohort_size is not None:
-        raise NotImplementedError("cohort rounds are not ported yet (ROADMAP "
-                                  "M6b, cohorts/registry)")
-    if cfg.agg_chunk is not None:
-        raise NotImplementedError("chunk-streamed aggregation is not ported "
-                                  "yet (ROADMAP M6c, chunked stream)")
     if cfg.reoptimize_every is not None:
         raise NotImplementedError("online re-cut is not ported yet (ROADMAP "
                                   "M9b)")
-    if not cfg.fused_cluster:
-        raise NotImplementedError("the host numpy clustering path is not "
-                                  "ported yet (ROADMAP M5b)")
+
+
+def _host(mask: Optional[torch.Tensor]) -> Optional[np.ndarray]:
+    return None if mask is None else mask.cpu().numpy()
 
 
 def merge_bn(updated: Dict, bn: Dict) -> Dict:
@@ -120,6 +127,10 @@ class HuSCFTrainer:
         self.clients = list(clients)
         self.cfg = config
         K = len(self.clients)
+        if config.cohort_size is not None and not (
+                1 <= config.cohort_size <= K):
+            raise ValueError(f"cohort_size {config.cohort_size} out of "
+                             f"range for {K} registered clients")
         if devices is None:
             devices = [PAPER_DEVICES[i % len(PAPER_DEVICES)] for i in range(K)]
         self.devices = list(devices)
@@ -129,9 +140,12 @@ class HuSCFTrainer:
         self._ga_config = ga_config or GAConfig(population_size=200,
                                                 generations=30,
                                                 seed=config.seed)
+        self.ga_seconds: Optional[float] = None    # host time of the GA
         if cuts is None:
+            t0 = time.perf_counter()
             result = optimize_cuts(self.devices, server, batch=config.batch,
                                    config=self._ga_config)
+            self.ga_seconds = time.perf_counter() - t0
             cuts = result.cuts
             self.ga_latency = result.latency
         else:
@@ -151,6 +165,10 @@ class HuSCFTrainer:
         self._rng = np.random.default_rng(config.seed + 1)
         self._train_gen = self._generator(config.seed + 1)
         self._cluster_gen = self._generator(config.seed + 2)
+        # the registered population; cohorts draw from their own
+        # generator so that enabling them never shifts the cluster stream
+        self.registry = ClientRegistry.from_clients(self.clients)
+        self._cohort_gen = self._generator(config.seed + 3)
         self._mid_ema = torch.zeros((K, DISC_MIDDLE_FEATURES),
                                     dtype=torch.float32, device=self.device)
         self._ema_init = False
@@ -304,33 +322,64 @@ class HuSCFTrainer:
         return self._mid_ema.detach().cpu().clone().numpy()
 
     def federate(self, use_label_kld: bool = False,
-                 init_centers: Optional[Dict[int, torch.Tensor]] = None
+                 init_centers: Optional[Dict[int, torch.Tensor]] = None,
+                 cohort_ids: Optional[torch.Tensor] = None
                  ) -> Dict[str, Any]:
-        """Stages 3+4; returns diagnostics. ``init_centers`` maps each
-        candidate k to the k-means++ centres to start from (tests feed
-        the reference's draws); without it they are drawn from the
-        trainer's cluster generator."""
-        if use_label_kld:
-            raise NotImplementedError("label-histogram KLD is not ported yet "
-                                      "(ROADMAP M5b, use_label_kld)")
+        """Stages 3+4; returns diagnostics.
+
+        With ``cfg.cohort_size`` each round first samples its cohort from
+        the registry; Eq. 15 weights renormalize over the cohort and
+        non-members keep their params. ``cfg.agg_chunk`` streams every
+        aggregation in client chunks. The clustered round runs on the
+        device unless ``cfg.fused_cluster`` is False or
+        ``use_label_kld`` is set, which take the host numpy path.
+
+        Tests feed the reference's draws: ``init_centers`` maps each
+        candidate k to the k-means++ centres of the device path, and
+        ``cohort_ids`` replaces this round's cohort draw."""
         self.fed_round += 1
+        cohort_mask = None
+        if self.cfg.cohort_size is not None:
+            if cohort_ids is None:
+                cohort_ids = self.registry.sample_cohort(
+                    self._cohort_gen, self.cfg.cohort_size)
+            else:
+                cohort_ids = torch.as_tensor(cohort_ids, dtype=torch.int32,
+                                             device=self.device)
+            cohort_mask = self.registry.cohort_mask(cohort_ids)
+        elif cohort_ids is not None:
+            raise ValueError("cohort_ids given to a trainer without "
+                             "cohort_size")
         if self.fed_round <= self.cfg.warmup_fed_rounds:
-            for net in ("G", "D"):
-                wrapped = {g.name: {net: self.state[net]["client"][g.name]}
-                           for g in self.groups}
-                out = fedavg_uniform(self.groups, wrapped, self.sizes,
-                                     n_layers={net: N_LAYERS[net]},
-                                     use_kernel=self.cfg.use_kernel,
-                                     plan_cache=self._fed_plans)
-                self.state[net]["client"] = {g.name: out[g.name][net]
-                                             for g in self.groups}
+            self._federate_nets(fedavg_uniform, self.sizes,
+                                cohort_mask=_host(cohort_mask))
             diag = {"round": self.fed_round, "mode": "fedavg"}
+        elif self.cfg.fused_cluster and not use_label_kld:
+            diag = self._federate_clustered(init_centers, cohort_mask)
         else:
-            diag = self._federate_clustered(init_centers)
+            diag = self._federate_host(use_label_kld, _host(cohort_mask))
+        if cohort_ids is not None:
+            diag["cohort"] = cohort_ids
         self.fed_log.append(diag)
         return diag
 
-    def _federate_clustered(self, init_centers) -> Dict[str, Any]:
+    def _federate_nets(self, federate_fn: Callable, *args, **kwargs) -> None:
+        """One aggregation per net over the client params (``federate_fn``
+        is one of ``core.federation``'s rounds); the results replace
+        them."""
+        for net in ("G", "D"):
+            wrapped = {g.name: {net: self.state[net]["client"][g.name]}
+                       for g in self.groups}
+            out = federate_fn(self.groups, wrapped, *args,
+                              n_layers={net: N_LAYERS[net]},
+                              use_kernel=self.cfg.use_kernel,
+                              plan_cache=self._fed_plans,
+                              chunk_size=self.cfg.agg_chunk, **kwargs)
+            self.state[net]["client"] = {g.name: out[g.name][net]
+                                         for g in self.groups}
+
+    def _federate_clustered(self, init_centers, cohort_mask
+                            ) -> Dict[str, Any]:
         if not self._ema_init:
             raise RuntimeError("federate() before any training step: the "
                                "middle-activation EMA is empty")
@@ -340,19 +389,41 @@ class HuSCFTrainer:
             gen=self._cluster_gen, init_centers=init_centers)
         bound = k_selection_bound(len(self.clients), self.cfg.num_clusters)
         weights, klds = kld_mod.activation_weights(
-            acts, self._sizes_dev, labels, bound, self.cfg.beta)
-        for net in ("G", "D"):
-            wrapped = {g.name: {net: self.state[net]["client"][g.name]}
-                       for g in self.groups}
-            out = federate_client_params_device(
-                self.groups, wrapped, weights, labels, bound,
-                n_layers={net: N_LAYERS[net]},
-                use_kernel=self.cfg.use_kernel, plan_cache=self._fed_plans)
-            self.state[net]["client"] = {g.name: out[g.name][net]
-                                         for g in self.groups}
+            acts, self._sizes_dev, labels, bound, self.cfg.beta,
+            cohort_mask=cohort_mask)
+        self._federate_nets(federate_client_params_device, weights, labels,
+                            bound, cohort_mask=cohort_mask,
+                            cohort_size=self.cfg.cohort_size)
         return {"round": self.fed_round, "mode": "clustered", "k": k_sel,
                 "silhouette": sil, "labels": labels, "weights": weights,
                 "klds": klds}
+
+    def _federate_host(self, use_label_kld: bool,
+                       cohort_mask: Optional[np.ndarray]) -> Dict[str, Any]:
+        """The reference's host round: numpy k-means from ``cfg.seed``,
+        activation (or label-histogram) KLD weights, the cohort's Eq.-15
+        renormalization (KLDs stay full-cluster), then the aggregation
+        on the device."""
+        acts = self.middle_activations()
+        cl = cluster_activations_np(acts, k=self.cfg.num_clusters,
+                                    seed=self.cfg.seed)
+        if use_label_kld:
+            hists = np.stack([np.bincount(c.labels,
+                                          minlength=gan.NUM_CLASSES)
+                              for c in self.clients])
+            weights, klds = kld_mod.label_weights(hists, self.sizes,
+                                                  cl.labels, self.cfg.beta)
+        else:
+            weights, klds = kld_mod.activation_weights_np(
+                acts, self.sizes, cl.labels, self.cfg.beta)
+        if cohort_mask is not None:
+            weights = kld_mod.cohort_federation_weights_np(
+                klds, self.sizes, cl.labels, cohort_mask, self.cfg.beta)
+        self._federate_nets(federate_client_params, weights, cl.labels,
+                            cohort_mask=cohort_mask)
+        return {"round": self.fed_round, "mode": "clustered", "k": cl.k,
+                "silhouette": cl.silhouette, "labels": cl.labels,
+                "weights": weights, "klds": klds}
 
     def reoptimize_cuts(self, *args, **kwargs):
         raise NotImplementedError("online re-cut is not ported yet (ROADMAP "

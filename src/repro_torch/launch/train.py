@@ -11,7 +11,18 @@ population on one device, with the flags and the printed lines of
 machine without CUDA raises). Kernels K1/K2 are on by default
 (``--no-use-kernel`` runs their plain expressions). Float32 products
 and convolutions run in full float32: TF32 is switched off.
-The LM trainer and the flags of paths not ported yet raise.
+
+Population scale: ``--cohort S`` samples S clients per federation
+round, ``--agg-chunk c`` streams every aggregation in chunks of c
+clients, and ``--ckpt PATH`` writes the final state in the reference's
+checkpoint format and layouts:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch huscf-gan \
+      --clients 512 --cohort 128 --agg-chunk 64 --epochs 4 \
+      --federate-every 1 --base-size 24
+
+The LM trainer, ``--fed-devices`` (ROADMAP M10) and
+``--reoptimize-every`` (M9b) raise.
 """
 from __future__ import annotations
 
@@ -22,13 +33,13 @@ import torch
 
 
 def train_huscf_gan(args):
+    from repro_torch.bridge import state_to_numpy
+    from repro_torch.checkpoint import save_checkpoint
     from repro_torch.core.huscf import HuSCFConfig, HuSCFTrainer
     from repro_torch.core.latency import PAPER_DEVICES
     from repro_torch.data.partition import build_scenario
 
-    unported = {"fed_devices": "M10, mesh code", "ckpt": "M7b, checkpoint",
-                "cohort": "M6b, cohorts/registry",
-                "agg_chunk": "M6c, chunked stream",
+    unported = {"fed_devices": "M10, mesh code",
                 "reoptimize_every": "M9b, online re-cut"}
     for flag, item in unported.items():
         if getattr(args, flag) not in (None, False, 1):
@@ -43,17 +54,25 @@ def train_huscf_gan(args):
                       config=HuSCFConfig(batch=args.batch,
                                          federate_every=args.federate_every,
                                          seed=args.seed,
-                                         use_kernel=args.use_kernel),
+                                         use_kernel=args.use_kernel,
+                                         cohort_size=args.cohort,
+                                         agg_chunk=args.agg_chunk),
                       device=args.device)
+    agg = (f"chunked({args.agg_chunk})" if args.agg_chunk else "dense")
+    part = (f"cohort {args.cohort}/{args.clients}" if args.cohort
+            else "full participation")
     print(f"[train] GA latency model: {tr.ga_latency:.2f}s/iter, "
           f"{len(tr.groups)} profile groups, mesh=1dev, eager epochs, "
-          f"dense aggregation, full participation")
+          f"{agg} aggregation, {part}")
     for ep in range(args.epochs):
         t0 = time.time()
         m = tr.train_epoch()
         print(f"[train] epoch {ep + 1}: loss_d={m['loss_d']:.3f} "
               f"loss_g={m['loss_g']:.3f} ({time.time() - t0:.1f}s)",
               flush=True)
+    if args.ckpt:
+        save_checkpoint(args.ckpt, state_to_numpy(tr.state), step=tr.epoch)
+        print(f"[train] checkpoint -> {args.ckpt}")
     return tr
 
 
@@ -78,10 +97,15 @@ def main(argv=None):
                     help="hand-written CUDA kernels for aggregation and "
                          "k-means assignment (default on)")
     ap.add_argument("--fed-devices", type=int, default=None)
-    ap.add_argument("--cohort", type=int, default=None)
-    ap.add_argument("--agg-chunk", type=int, default=None)
+    ap.add_argument("--cohort", type=int, default=None,
+                    help="sample this many clients per federation round "
+                         "(default: full participation)")
+    ap.add_argument("--agg-chunk", type=int, default=None,
+                    help="stream aggregation in client chunks of this "
+                         "size instead of the dense [K, D] buffer")
     ap.add_argument("--reoptimize-every", type=int, default=None)
-    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt", default=None,
+                    help="write the final state to this checkpoint file")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda)")
     args = ap.parse_args(argv)

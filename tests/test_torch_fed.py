@@ -199,10 +199,13 @@ def test_weight_segments_match_reference(fed_setup):
 
 
 def test_unported_round_options_raise(fed_setup):
+    """Chunks and cohorts are ported (tests/test_torch_population.py);
+    mesh sharding (M10) still raises on every entry point."""
     _, gt, wrapped = fed_setup
-    with pytest.raises(NotImplementedError, match="chunked"):
-        tfed.fedavg_uniform(gt, state_from_numpy(wrapped, "cpu"), np.ones(6),
-                            chunk_size=2)
-    with pytest.raises(NotImplementedError, match="cohort"):
-        tfed.fedavg_uniform(gt, state_from_numpy(wrapped, "cpu"), np.ones(6),
-                            cohort_mask=np.ones(6, bool))
+    params = state_from_numpy(wrapped, "cpu")
+    with pytest.raises(NotImplementedError, match="M10"):
+        tfed.fedavg_uniform(gt, params, np.ones(6), mesh=object())
+    with pytest.raises(NotImplementedError, match="M10"):
+        tfed.federate_client_params_device(
+            gt, params, torch.ones(6), torch.zeros(6, dtype=torch.int64), 1,
+            mesh=object())

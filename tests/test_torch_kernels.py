@@ -524,6 +524,29 @@ def test_clustered_agg_kernel_on_card(cuda, S, K, D):
                                rtol=AGG_TOL, atol=AGG_TOL)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,c,D,rows", [
+    (24, 64, 2_050_405, 64), (24, 64, 2_050_405, 9), (24, 64, 671_585, 64),
+    (24, 64, 10_001, 64), (24, 64, 10_001, 55), (8, 1, 4_099, 1),
+    (32, 3, 10_001, 2), (24, 7, 6_275, 7)])
+def test_clustered_agg_chunk_tile_on_card(cuda, S, c, D, rows):
+    """K1 on the chunk stream's tiles ``A_c [S, c] @ theta_c [c, D]``
+    (S = 24: 4 ownable layers x 6 clusters): a full tile, a tail tile
+    whose rows and weights past ``rows`` are zero as
+    ``FederationPlan.aggregate_chunked`` builds them, one-column tiles
+    and D % 4 != 0."""
+    w, theta = _agg_inputs(S, c, D, seed=S + c + D + rows)
+    w[:, rows:] = 0.0
+    theta[rows:] = 0.0
+    w, theta = torch.from_numpy(w).to(cuda), torch.from_numpy(theta).to(cuda)
+    before = wa.launches
+    got = wa.clustered_agg_flat(w, theta)
+    torch.cuda.synchronize()
+    assert wa.launches == before + 1
+    torch.testing.assert_close(got, clustered_agg_ref(w, theta),
+                               rtol=AGG_TOL, atol=AGG_TOL)
+
+
 def _counters_at_zero():
     return all(int(c.abs().sum()) == 0 for c, _ in build.scratch.values())
 
