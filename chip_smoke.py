@@ -17,14 +17,17 @@ Phases (any failure exits non-zero and prints no result):
      state bit for bit, the rounds ran, every kernel launched, losses
      and parameters are finite, the generator's images have the right
      shape and range, a clustered round through the kernels equals the
-     same round through their plain expressions, and a small trainer on
-     the card agrees with the same trainer on the CPU;
+     same round through their plain expressions, the legacy
+     per-(layer, cluster) oracle (``fused=False``, K1's S = 1 entry
+     point) agrees with the fused round, and a small trainer on the card
+     agrees with the same trainer on the CPU;
   4b. the population: ``train.main`` with --clients 512 --cohort 128
      --agg-chunk 64 --epochs 4 --federate-every 1 --base-size 24 (one
      step per epoch; two chunked cohort FedAvg rounds, then two chunked
      cohort clustered rounds), with the counts set to 0 just before and
      read just after: K1 launched once per chunk tile (sum over groups
-     of ceil(Kg / 64), per net per round) and K2 only on 512 rows. Then
+     of ceil(Kg / 64), per net per round; counted by S: 8 in the FedAvg
+     rounds, 24 in the clustered ones) and K2 only on 512 rows. Then
      one more clustered round leaves non-members bit for bit and moves
      every member; from one state and one set of weights and labels the
      dense and the chunked round, each through K1 and through the plain
@@ -47,7 +50,10 @@ Phases (any failure exits non-zero and prints no result):
      is profiled;
   7. holds K1 (clustered_agg) and K2 (kmeans_assign) against their plain
      PyTorch versions at the slice's shapes, plus ragged and tied cases,
-     K1 also at the population's chunk tile [S, 64] @ [64, D_G],
+     K1 with theta's rows padded as the federation plan pads them and
+     unpadded at odd D, at S = 1, 8, 24, 32 and 40, at K = 3000 (above
+     the earlier kernel's shared-memory cap), through its S = 1 entry
+     point, and at the population's chunk tiles [S, 64] @ [64, D_G],
      K2 also at N=256 M=4, N=512 M=6 (the population) and N=4096 M=6
      with exact ties and NaN centres
      (the first NaN wins), and K3 (mem_attention) and K4 (flash_decode)
@@ -57,7 +63,10 @@ Phases (any failure exits non-zero and prints no result):
      split LM's own shapes and cache lengths up to the granite-3-2b
      attention shapes;
   8. times each kernel, its plain version and the one PyTorch call that
-     computes the same function (torch.matmul for K1,
+     computes the same function (torch.matmul for K1, at the slice's
+     shape, the chunk tiles at S = 24 and S = 8 and a dense round of
+     2560 clients [24, 2560] @ [2560, D_D], each with its byte bound and
+     its FMA time;
      scaled_dot_product_attention for K3/K4, for K4 at a full cache also
      without a mask), with the device time per launch from
      torch.profiler; K2 at the training shape (N=8 M=4), the JAX kernel
@@ -230,6 +239,42 @@ def check_slice(tr) -> None:
         f"{worst:.3e}")
 
 
+def check_legacy_oracle(tr) -> dict:
+    """The legacy per-(layer, cluster) loop (``fused=False``) through
+    K1's S = 1 entry point, against the fused round through K1, from the
+    slice's trained state and its last clustered round's weights and
+    labels: every aggregated leaf within K1_RTOL of its scale."""
+    import torch
+    from repro_torch.core.federation import N_LAYERS, federate_client_params
+    from repro_torch.kernels import weighted_agg as wa
+    diag = [d for d in tr.fed_log if d["mode"] == "clustered"][-1]
+    weights = diag["weights"].cpu().numpy()
+    labels = diag["labels"].cpu().numpy()
+    wrapped = {g.name: {net: tr.state[net]["client"][g.name]
+                        for net in ("G", "D")} for g in tr.groups}
+    outs, launches, secs = {}, {}, {}
+    for fused in (True, False):
+        wa.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[fused] = federate_client_params(
+            tr.groups, wrapped, weights, labels, n_layers=N_LAYERS,
+            use_kernel=True, fused=fused, plan_cache={})
+        torch.cuda.synchronize()
+        secs[fused] = time.perf_counter() - t0
+        launches[fused] = wa.launches
+    worst = max_rel_diff(outs[False], outs[True])
+    if not worst <= K1_RTOL or launches[False] <= launches[True]:
+        raise AssertionError(f"legacy round vs fused round: {worst} (K1 "
+                             f"launches {launches})")
+    log(f"legacy oracle round (fused=False, K1 S = 1) vs fused round: max "
+        f"rel diff {worst:.3e}; K1 launches {launches[False]} vs "
+        f"{launches[True]}; {secs[False]:.3f}s vs {secs[True]:.3f}s")
+    return {"max_rel_diff": worst, "k1_launches": launches[False],
+            "fused_k1_launches": launches[True], "legacy_s": secs[False],
+            "fused_s": secs[True]}
+
+
 def check_cpu_agreement() -> None:
     """A small trainer on the card and on the CPU, from one initial state
     and one stream of batches: losses, parameters and the clustered
@@ -319,7 +364,8 @@ def check_kernels(tr):
     import torch
     from repro_torch.kernels import kmeans_assign as km
     from repro_torch.kernels import weighted_agg as wa
-    from repro_torch.kernels.ref import clustered_agg_ref, kmeans_assign_ref
+    from repro_torch.kernels.ref import (clustered_agg_ref, kmeans_assign_ref,
+                                         weighted_agg_ref)
     from repro_torch.core.clustering import k_selection_bound
     from repro_torch.models.gan import DISC_MIDDLE_FEATURES
 
@@ -329,24 +375,47 @@ def check_kernels(tr):
     plans = {p.net: p for p in tr._fed_plans.values()}
     K = plans["G"].n_rows
     S_cl = plans["G"].num_segments(bound_k)
-    shapes = [(S_cl, K, plans["G"].n_cols), (S_cl, K, plans["D"].n_cols),
-              (plans["D"].num_segments(bound_k), K, plans["D"].n_cols),
-              (24, K, plans["G"].n_cols), (8, K, plans["G"].n_cols),
-              (1, K, 8 * 1024 + 3), (5, 3, 10_001), (24, 8, 4 * 1024 + 2)]
+    D_G, D_D = plans["G"].n_cols, plans["D"].n_cols
+    # (S, K, D, layout): the slice's rounds as the plan lays theta out
+    # (rows padded to 32 floats); odd D unpadded (4-byte copies); every
+    # row template (S = 1; 8; 24 in two groups of 12; 32 and 40 in
+    # groups of 16; 130 in two blocks of rows) on both layouts; K = 3000
+    # clients, far above the 227 KB of W the earlier kernel held in one
+    # block's shared memory
+    shapes = [(S_cl, K, D_G, "padded"), (S_cl, K, D_D, "padded"),
+              (plans["D"].num_segments(bound_k), K, D_D, "padded"),
+              (S_cl, K, D_G, "contiguous"), (24, K, D_G, "contiguous"),
+              (8, K, D_G, "contiguous"), (1, K, 8 * 1024 + 3, "contiguous"),
+              (5, 3, 10_001, "contiguous"), (24, 8, 4 * 1024 + 2, "contiguous")]
+    shapes += [(S, 13, D, layout) for S in (1, 8, 24, 32, 40, 130)
+               for D, layout in ((D_D, "padded"), (10_001, "contiguous"))]
+    shapes += [(24, 3000, 65_537, "padded"), (24, 3000, 65_537, "contiguous")]
     k1_err = 0.0
-    for S, KK, D in shapes:
+    for S, KK, D, layout in shapes:
         w = torch.softmax(torch.randn((S, KK), generator=gen, device=dev), 1)
         theta = torch.randn((KK, D), generator=gen, device=dev)
+        if layout == "padded":
+            theta = padded_rows(theta)
         got = wa.clustered_agg_flat(w, theta)
         want = clustered_agg_ref(w, theta)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         scale = max(1.0, float(want.abs().max()))
-        log(f"K1 S={S} K={KK} D={D}: max abs err {err:.3e}")
+        log(f"K1 S={S} K={KK} D={D} {layout}: max abs err {err:.3e}")
         if not err <= K1_RTOL * scale:
-            raise AssertionError(f"K1 disagrees at S={S} K={KK} D={D}: "
-                                 f"{err} > {K1_RTOL} * {scale}")
+            raise AssertionError(f"K1 disagrees at S={S} K={KK} D={D} "
+                                 f"{layout}: {err} > {K1_RTOL} * {scale}")
         k1_err = max(k1_err, err)
+    # the S = 1 entry point: one weighted average over the slice's clients
+    x = torch.randn((K, D_G), generator=gen, device=dev)
+    wk = torch.softmax(torch.randn((K,), generator=gen, device=dev), 0)
+    got, want = wa.weighted_agg_flat(x, wk), weighted_agg_ref(x, wk)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    log(f"K1 weighted_agg_flat K={K} D={D_G}: max abs err {err:.3e}")
+    if not err <= K1_RTOL * max(1.0, float(want.abs().max())):
+        raise AssertionError(f"weighted_agg_flat disagrees: {err}")
+    k1_err = max(k1_err, err)
 
     N, D = len(tr.clients), DISC_MIDDLE_FEATURES
     for M in range(2, bound_k + 1):
@@ -371,26 +440,18 @@ def check_kernels(tr):
     for where, (NN, M, DD) in k2_shapes.items():
         check_kmeans_assign(gen, NN, M, DD, where)
 
-    # timing at the slice's shapes
-    S, D = S_cl, plans["G"].n_cols
-    w = torch.softmax(torch.randn((S, K), generator=gen, device=dev), 1)
-    theta = torch.randn((K, D), generator=gen, device=dev)
-    k1_ms = time_ms(lambda: wa.clustered_agg_flat(w, theta))
-    k1_dev = device_ms_per_launch(lambda: wa.clustered_agg_flat(w, theta),
-                                  "clustered_agg_kernel")
-    k1_plain = time_ms(lambda: clustered_agg_ref(w, theta))
-    k1_lib = time_ms(lambda: torch.matmul(w, theta))
-    k1_bound, k1_by = bound(4.0 * (S * K + K * D + S * D), 2.0 * S * K * D)
-    log(f"K1 timed at S={S} K={K} D={D}: {k1_ms:.4f} ms (device {k1_dev})")
+    # timing at the slice's shapes, theta laid out as the plan lays it,
+    # and at S = 1 (a weighted average of the slice's clients, the legacy
+    # oracle's shape of call)
+    k1 = time_clustered_agg(gen, S_cl, K, D_G)
+    k1["s1"] = time_clustered_agg(gen, 1, K, D_G)
     k2 = {where: time_kmeans_assign(gen, *shape)
           for where, shape in k2_shapes.items()}
     return [
         {"name": "clustered_agg", "route": "cuda",
          "source": "src/repro_torch/csrc/clustered_agg.cu",
          "replaces": "src/repro/kernels/weighted_agg.py:69",
-         "launches": None, "max_abs_err": k1_err, "ms": k1_ms,
-         "device_ms": k1_dev, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": k1_lib},
+         "launches": None, **k1, "max_abs_err": k1_err},
         {"name": "kmeans_assign", "route": "cuda",
          "source": "src/repro_torch/csrc/kmeans_assign.cu",
          "replaces": "src/repro/kernels/kmeans_assign.py:31",
@@ -400,6 +461,53 @@ def check_kernels(tr):
              "library_ms", "shape")},
          **k2},
     ]
+
+
+def padded_rows(theta):
+    """theta [K, D] copied into rows padded as ``FederationPlan`` pads
+    its flat buffers; returns the [K, D] view."""
+    from repro_torch.core import federation
+    return federation.padded_rows(*theta.shape, theta.device).copy_(theta)
+
+
+def time_clustered_agg(gen, S: int, K: int, D: int, iters: int = 100
+                       ) -> dict:
+    """K1 at W [S, K] @ theta [K, D] (theta rows padded as the plan pads
+    them), checked against its plain version, then timed beside it and
+    torch.matmul: the CUDA-event loop, the device time per launch from
+    torch.profiler, the byte bound and the time of its float32 FMAs at
+    the card's peak rate."""
+    import torch
+    from repro_torch.kernels import weighted_agg as wa
+    from repro_torch.kernels.ref import clustered_agg_ref
+    dev = torch.device("cuda")
+    w = torch.softmax(torch.randn((S, K), generator=gen, device=dev), 1)
+    theta = padded_rows(torch.randn((K, D), generator=gen, device=dev))
+    got, want = wa.clustered_agg_flat(w, theta), clustered_agg_ref(w, theta)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not err <= K1_RTOL * max(1.0, float(want.abs().max())):
+        raise AssertionError(f"K1 disagrees at S={S} K={K} D={D}: {err}")
+    del got, want
+    flops = 2.0 * S * K * D
+    b_ms, b_by = bound(4.0 * (S * K + K * D + S * D), flops)
+    out = {"shape": {"S": S, "K": K, "D": D}, "max_abs_err": err,
+           "ms": time_ms(lambda: wa.clustered_agg_flat(w, theta),
+                         iters=iters),
+           "device_ms": device_ms_per_launch(
+               lambda: wa.clustered_agg_flat(w, theta),
+               "clustered_agg_kernel", n=min(50, iters)),
+           "plain_ms": time_ms(lambda: clustered_agg_ref(w, theta),
+                               iters=iters),
+           "library_ms": time_ms(lambda: torch.matmul(w, theta),
+                                 iters=iters),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "fma_ms": flops / PEAK_FP32_FLOPS * 1e3}
+    log(f"K1 timed at S={S} K={K} D={D}: {out['ms']:.4f} ms (device "
+        f"{out['device_ms']}), plain {out['plain_ms']:.4f}, matmul "
+        f"{out['library_ms']:.4f}, bound {b_ms:.4f} ({b_by}), FMA "
+        f"{out['fma_ms']:.4f}; err {err:.2e}")
+    return out
 
 
 def check_kmeans_assign(gen, N: int, M: int, D: int, where: str) -> None:
@@ -533,15 +641,20 @@ def run_population(train_main, device: str = "cuda") -> dict:
     from repro_torch.kernels import weighted_agg as wa
     from repro_torch.tree import tree_items, tree_leaves, tree_map
 
-    # record the rows of every K2 call the trainer makes
-    k2_rows = []
-    assign = ops.kmeans_assign
+    # record the rows of every K2 call and the S of every K1 call the
+    # trainer makes
+    k2_rows, k1_s = [], []
+    assign, agg = ops.kmeans_assign, ops.clustered_agg
 
     def recording_assign(x, centers):
         k2_rows.append((int(x.shape[0]), int(centers.shape[0])))
         return assign(x, centers)
 
-    ops.kmeans_assign = recording_assign
+    def recording_agg(weights, stacked):
+        k1_s.append(int(weights.shape[0]))
+        return agg(weights, stacked)
+
+    ops.kmeans_assign, ops.clustered_agg = recording_assign, recording_agg
     wa.launches = 0
     km.launches = 0
     try:
@@ -554,17 +667,18 @@ def run_population(train_main, device: str = "cuda") -> dict:
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
     finally:
-        ops.kmeans_assign = assign
+        ops.kmeans_assign, ops.clustered_agg = assign, agg
     counts = {"clustered_agg": wa.launches, "kmeans_assign": km.launches}
+    k1_by_s = {str(S): k1_s.count(S) for S in sorted(set(k1_s))}
     modes = [d["mode"] for d in tr.fed_log]
     tiles = k1_tiles(tr.groups, POP_CHUNK)
     want_k1 = 2 * tiles * len(modes)
     log(f"population ran in {run_s:.1f}s (GA {tr.ga_seconds:.1f}s); rounds "
-        f"{modes}; launches {counts}; K1 reckoned {want_k1}; K2 rows "
-        f"{sorted(set(k2_rows))}")
+        f"{modes}; launches {counts}; K1 reckoned {want_k1}, by S "
+        f"{k1_by_s}; K2 rows {sorted(set(k2_rows))}")
     if modes != ["fedavg", "fedavg", "clustered", "clustered"]:
         raise AssertionError(f"population rounds ran as {modes}")
-    if counts["clustered_agg"] != want_k1:
+    if counts["clustered_agg"] != want_k1 or len(k1_s) != want_k1:
         raise AssertionError(f"K1 launched {counts['clustered_agg']} times, "
                              f"reckoned {want_k1} ({tiles} tiles per net "
                              f"per round)")
@@ -729,6 +843,7 @@ def run_population(train_main, device: str = "cuda") -> dict:
             "clustered_k": diag["k"],
             "k1_launches": counts["clustered_agg"],
             "k1_launches_per_round": 2 * tiles,
+            "k1_launches_by_S": k1_by_s,
             "k2_launches": counts["kmeans_assign"],
             "k2_N": sorted({n for n, _ in k2_rows}),
             "k2_M": sorted({m for _, m in k2_rows}),
@@ -744,36 +859,18 @@ def run_population(train_main, device: str = "cuda") -> dict:
     return line
 
 
-def time_population_kernels(gen, S: int, D: int) -> dict:
-    """K1 at the population's chunk tile [S, 64] @ [64, D_G] (checked
-    against its plain version, then timed beside torch.matmul) and K2 at
-    N=512, M=6 (checked on exact inputs, then timed)."""
-    import torch
-    from repro_torch.kernels import weighted_agg as wa
-    from repro_torch.kernels.ref import clustered_agg_ref
+def time_population_kernels(gen, D_G: int, D_D: int) -> dict:
+    """K1 at the population's chunk tiles [S, 64] @ [64, D_G], S = 24
+    (the clustered rounds: 4 owned layers x the bound of 6 clusters) and
+    S = 8 (the FedAvg rounds: 4 layers x 1 cluster, padded to 8), and at
+    a dense clustered round of 2560 clients [24, 2560] @ [2560, D_D]
+    (theta 6.9 GB), each checked against its plain version and timed
+    beside torch.matmul; K2 at N=512, M=6 (checked on exact inputs, then
+    timed)."""
     from repro_torch.models.gan import DISC_MIDDLE_FEATURES
-    dev = torch.device("cuda")
-    c = POP_CHUNK
-    w = torch.softmax(torch.randn((S, c), generator=gen, device=dev), 1)
-    theta = torch.randn((c, D), generator=gen, device=dev)
-    got, want = wa.clustered_agg_flat(w, theta), clustered_agg_ref(w, theta)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not err <= K1_RTOL * max(1.0, float(want.abs().max())):
-        raise AssertionError(f"K1 disagrees at the chunk tile S={S} c={c} "
-                             f"D={D}: {err}")
-    b_ms, b_by = bound(4.0 * (S * c + c * D + S * D), 2.0 * S * c * D)
-    k1 = {"shape": {"S": S, "K": c, "D": D}, "max_abs_err": err,
-          "ms": time_ms(lambda: wa.clustered_agg_flat(w, theta)),
-          "device_ms": device_ms_per_launch(
-              lambda: wa.clustered_agg_flat(w, theta),
-              "clustered_agg_kernel"),
-          "plain_ms": time_ms(lambda: clustered_agg_ref(w, theta)),
-          "library_ms": time_ms(lambda: torch.matmul(w, theta)),
-          "bound_ms": b_ms, "bound_by": b_by}
-    log(f"K1 population chunk tile S={S} K={c} D={D}: {k1['ms']:.4f} ms "
-        f"(device {k1['device_ms']}), plain {k1['plain_ms']:.4f}, matmul "
-        f"{k1['library_ms']:.4f}, bound {b_ms:.4f} ({b_by}); err {err:.2e}")
+    k1 = {"chunk_s24": time_clustered_agg(gen, 24, POP_CHUNK, D_G),
+          "chunk_s8": time_clustered_agg(gen, 8, POP_CHUNK, D_G),
+          "dense_k2560": time_clustered_agg(gen, 24, 2560, D_D, iters=20)}
     check_kmeans_assign(gen, POP_CLIENTS, 6, DISC_MIDDLE_FEATURES,
                         "population_512")
     k2 = time_kmeans_assign(gen, POP_CLIENTS, 6, DISC_MIDDLE_FEATURES)
@@ -1233,6 +1330,7 @@ def main() -> int:
 
     ckpt_leaves = check_checkpoint(tr, ckpt)
     check_slice(tr)
+    legacy = check_legacy_oracle(tr)
     check_cpu_agreement()
     gan_serve = check_gan_serving(serve_main)
     lm_serve = check_lm_serving(serve_main)
@@ -1242,14 +1340,19 @@ def main() -> int:
     kernels = check_kernels(tr)
     for k in kernels:
         k["launches"] = counts[k["name"]]
+    kernels[0]["s1"]["launches"] = legacy["k1_launches"]
     gen = torch.Generator(device="cuda").manual_seed(1)
-    pop_k = time_population_kernels(gen, population["S"],
-                                    population["k1_D"]["G"])
-    pop_launches = {"clustered_agg": population["k1_launches"],
-                    "kmeans_assign": population["k2_launches"]}
-    for k in kernels:
-        k["population"] = dict(pop_k[k["name"]],
-                               launches=pop_launches[k["name"]])
+    pop_k = time_population_kernels(gen, population["k1_D"]["G"],
+                                    population["k1_D"]["D"])
+    by_s = population["k1_launches_by_S"]
+    k1_rows = pop_k["clustered_agg"]
+    kernels[0]["population"] = dict(k1_rows["chunk_s24"],
+                                    launches=by_s.get("24", 0))
+    kernels[0]["population_s8"] = dict(k1_rows["chunk_s8"],
+                                       launches=by_s.get("8", 0))
+    kernels[0]["dense_k2560"] = dict(k1_rows["dense_k2560"], launches=None)
+    kernels[1]["population"] = dict(pop_k["kmeans_assign"],
+                                    launches=population["k2_launches"])
     attn_err = check_attention(gen)
     lm_cfg = SplitLMConfig(s_max=lm_serve["prompt"] + lm_serve["gen"] + 16)
     attn_times = time_attention(gen, lm_cfg, lm_serve["batch"],
@@ -1275,7 +1378,8 @@ def main() -> int:
                    "groups": len(tr.groups), "ga_latency": tr.ga_latency,
                    "k1_D": {p.net: p.n_cols for p in tr._fed_plans.values()},
                    "rounds": [d["mode"] for d in tr.fed_log],
-                   "checkpoint_leaves": ckpt_leaves})
+                   "checkpoint_leaves": ckpt_leaves,
+                   "legacy_oracle": legacy})
     print(json.dumps({"slice": timing}), flush=True)
     print(json.dumps({"population": population}), flush=True)
     print(json.dumps({"serve": {"gan": gan_serve, "lm": lm_serve}}),

@@ -5,7 +5,9 @@ A checkpoint is one msgpack map ``{"step", "treedef", "leaves": [{"dtype",
 "shape", "data"}]}``: ``data`` holds a leaf's raw bytes, and the leaves
 come in the reference's flatten order (dict keys sorted, a NamedTuple
 such as ``AdamState`` field by field: step, mu, nu). ``treedef`` is the
-port's own description of the tree's structure. The trainer writes
+string JAX gives the tree's structure (``str(PyTreeDef)``), so a file
+written by either package loads through the other's
+``load_checkpoint``. The trainer writes
 ``bridge.state_to_numpy(state)``, so a file holds the reference's
 layouts (HWIO kernels) and its leaves decode with ``msgpack`` and the
 reference's ``_unpack_leaf``.
@@ -163,26 +165,42 @@ def _is_namedtuple(x) -> bool:
 
 
 def tree_flatten(tree: Any) -> Tuple[List[Any], str]:
-    """(leaves in the reference's flatten order, structure description)."""
+    """(leaves, structure) in JAX's flatten order, with the structure
+    written as ``str(jax.tree_util.tree_flatten(tree)[1])`` writes it:
+    dicts with sorted keys, a NamedTuple such as ``AdamState`` as
+    ``CustomNode(namedtuple[Name], [...])``, lists, tuples (``(*,)`` for
+    one element), ``None`` as a node without leaves, anything else a
+    leaf ``*``."""
     leaves: List[Any] = []
 
     def walk(t) -> str:
+        if t is None:
+            return "None"
         if isinstance(t, dict):
-            return "{" + ",".join(f"{k!r}:{walk(t[k])}"
-                                  for k in sorted(t)) + "}"
+            return "{" + ", ".join(f"{k!r}: {walk(t[k])}"
+                                   for k in sorted(t)) + "}"
         if _is_namedtuple(t):
-            return (f"{type(t).__name__}("
-                    + ",".join(walk(v) for v in t) + ")")
+            return (f"CustomNode(namedtuple[{type(t).__name__}], ["
+                    + ", ".join(walk(v) for v in t) + "])")
+        if isinstance(t, list):
+            return "[" + ", ".join(walk(v) for v in t) + "]"
+        if isinstance(t, tuple):
+            inner = ", ".join(walk(v) for v in t)
+            return "(" + inner + ("," if len(t) == 1 else "") + ")"
         leaves.append(t)
         return "*"
-    return leaves, walk(tree)
+    return leaves, f"PyTreeDef({walk(tree)})"
 
 
 def _unflatten(template: Any, leaves: Iterator[Any]) -> Any:
+    if template is None:
+        return None
     if isinstance(template, dict):
         return {k: _unflatten(template[k], leaves) for k in sorted(template)}
     if _is_namedtuple(template):
         return type(template)(*(_unflatten(v, leaves) for v in template))
+    if isinstance(template, (list, tuple)):
+        return type(template)(_unflatten(v, leaves) for v in template)
     return next(leaves)
 
 

@@ -13,7 +13,11 @@ own the layer; leaves in sorted-key order). The dense round is then
 ``A @ theta`` with ``A [S, K]`` one normalized reduce row per (layer,
 cluster) segment, S padded to a multiple of 8, followed by a gather of
 each copy's segment row and an unflatten. With ``use_kernel`` the
-product is kernel K1.
+product is kernel K1. Every flat buffer the plan allocates (``theta``,
+the chunk stream's ``theta_c`` and ``acc``) pads its rows to a multiple
+of 32 floats (``row_stride``), so each row starts on a 128-byte
+boundary and K1 copies it 16 bytes at a time; the plan hands out the
+``[:, :n_cols]`` view, and the pad columns are zero and never read back.
 
 Chunk-streamed round (``chunk_size=``, ``FederationPlan.aggregate_chunked``):
 the dense ``[K, D]`` buffer is never built. Each profile group's rows
@@ -35,6 +39,13 @@ participating members only, and every copy of a non-member keeps its
 pre-round values bit for bit (the recv-select of the unflatten), as
 does every copy of a (layer, cluster) whose cohort is empty.
 
+The legacy loop (``federate_client_params(fused=False)``,
+``_federate_client_params_legacy``) is the reference's correctness
+oracle: net x layer x cluster x member, one weighted average per (layer,
+cluster) (``weighted_average_stacked``, K1's S = 1 case with
+``use_kernel``) scattered back to every member; full-participation dense
+rounds only.
+
 Mesh sharding (M10) is not ported; ``mesh=`` raises.
 """
 from __future__ import annotations
@@ -50,9 +61,10 @@ from repro_torch.core.splitting import (ProfileGroup, client_owned_layers,
                                         layer_pair)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.gan import DISC_LAYER_DEFS, GEN_LAYER_DEFS
-from repro_torch.tree import tree_from_items, tree_items
+from repro_torch.tree import tree_from_items, tree_items, tree_map
 
 _SEGMENT_PAD = 8
+_ROW_ALIGN = 32                 # floats: flat-buffer rows start on 128 B
 N_LAYERS = {"G": len(GEN_LAYER_DEFS), "D": len(DISC_LAYER_DEFS)}
 
 
@@ -85,6 +97,35 @@ def _unsupported(mesh=None) -> None:
 
 def _padded_segments(n_seg: int) -> int:
     return max(_SEGMENT_PAD, -(-n_seg // _SEGMENT_PAD) * _SEGMENT_PAD)
+
+
+def row_stride(cols: int) -> int:
+    """Row stride, in floats, of the plan's flat buffers of ``cols``
+    columns: a multiple of ``_ROW_ALIGN``."""
+    return max(_ROW_ALIGN, -(-cols // _ROW_ALIGN) * _ROW_ALIGN)
+
+
+def padded_rows(n: int, cols: int, device: torch.device) -> torch.Tensor:
+    """An [n, cols] float32 view of a buffer whose rows are padded to
+    ``row_stride(cols)`` floats, so that every row starts on a 16-byte
+    boundary and K1 copies it 16 bytes at a time; the pad columns are
+    zero, the rest uninitialized."""
+    buf = torch.empty((n, row_stride(cols)), dtype=torch.float32,
+                      device=device)
+    buf[:, cols:].zero_()
+    return buf[:, :cols]
+
+
+def weighted_average_stacked(stacked: Any, weights: torch.Tensor,
+                             use_kernel: bool = False) -> Any:
+    """Weighted sum over the leading client axis of every leaf, in
+    float32, cast back to the leaf's dtype; ``weights`` [K] must already
+    be normalized. ``use_kernel`` runs K1's S = 1 entry point."""
+    if use_kernel:
+        return tree_map(lambda x: kops.weighted_agg(x, weights), stacked)
+    w = weights.float()
+    return tree_map(lambda x: torch.einsum("k,k...->...", w, x.float()
+                                           ).to(x.dtype), stacked)
 
 
 class FederationPlan:
@@ -132,6 +173,7 @@ class FederationPlan:
             self._col_runs[l] = (col, width)
             col += width
         self.n_cols = col
+        self.row_stride = row_stride(col)
 
         self.entries: List[_SegmentEntry] = []
         sid = 0
@@ -246,21 +288,21 @@ class FederationPlan:
     # -- flatten / unflatten ----------------------------------------------------
     def flatten(self, net_params: Dict[str, Dict[str, Any]],
                 device: torch.device) -> torch.Tensor:
-        bufs = []
+        """The dense ``theta [K, n_cols]`` (rows padded to
+        ``row_stride``): each group's copies of its owned layers' leaves
+        in their column runs, zero elsewhere."""
+        theta = padded_rows(self.n_rows, self.n_cols, device)
         for gname in self._groups_order:
             r0, r1 = self._group_rows[gname]
-            k = r1 - r0
-            parts = []
             for l, (c0, w) in sorted(self._col_runs.items()):
-                if l in self._owned[gname]:
-                    parts.extend(
-                        x.reshape(k, -1).float()
-                        for _, x in tree_items(net_params[gname][str(l)]))
-                else:
-                    parts.append(torch.zeros((k, w), dtype=torch.float32,
-                                             device=device))
-            bufs.append(torch.cat(parts, 1))
-        return torch.cat(bufs, 0)
+                if l not in self._owned[gname]:
+                    theta[r0:r1, c0:c0 + w].zero_()
+                    continue
+                for _, x in tree_items(net_params[gname][str(l)]):
+                    flat = x.reshape(r1 - r0, -1)
+                    theta[r0:r1, c0:c0 + flat.shape[1]].copy_(flat)
+                    c0 += flat.shape[1]
+        return theta
 
     def unflatten(self, agg: torch.Tensor, seg_ids: torch.Tensor,
                   originals: Optional[Dict[str, Dict[str, Any]]] = None,
@@ -352,10 +394,9 @@ class FederationPlan:
         dev = w_all.device
         _, _, _, row_cids = self._indices(dev)
         S = zero_seg.shape[0]
-        acc = torch.zeros((S, self.n_cols), dtype=torch.float32, device=dev)
+        acc = padded_rows(S, self.n_cols, dev).zero_()
         mass = torch.zeros(S, dtype=torch.float32, device=dev)
-        theta_c = torch.empty((c, self.n_cols), dtype=torch.float32,
-                              device=dev)
+        theta_c = padded_rows(c, self.n_cols, dev)
         A_c = torch.empty((S, c), dtype=torch.float32, device=dev)
         cols = torch.arange(c, device=dev)
         for gname in self._groups_order:
@@ -423,20 +464,22 @@ class FederationPlan:
 
     # -- memory envelopes ---------------------------------------------------------
     def dense_buffer_bytes(self) -> int:
-        """float32 bytes of the dense ``theta [K, D]`` flat client buffer
-        of the dense rounds (the O(clients) term the chunk stream
-        removes)."""
-        return 4 * self.n_rows * self.n_cols
+        """float32 bytes allocated for the dense ``theta [K, D]`` flat
+        client buffer of the dense rounds, rows padded to ``row_stride``
+        (the O(clients) term the chunk stream removes)."""
+        return 4 * self.n_rows * self.row_stride
 
     def chunked_buffer_bytes(self, num_clusters: int) -> int:
-        """float32 bytes of the chunk stream's working set: one ``theta_c
-        [c, D]`` and ``A_c [S, c]`` tile plus ``(acc [S, D], mass [S])``,
-        O(chunk + clusters), independent of the client count."""
+        """float32 bytes allocated for the chunk stream's working set:
+        one ``theta_c [c, D]`` and ``A_c [S, c]`` tile plus ``(acc [S, D],
+        mass [S])``, rows of D padded to ``row_stride``; O(chunk +
+        clusters), independent of the client count."""
         if self.chunk_size is None:
             raise ValueError("plan was built without chunk_size")
         S = self.num_segments(num_clusters)
         c = self.chunk_size
-        return 4 * (c * self.n_cols + S * c + S * self.n_cols + S)
+        ld = self.row_stride
+        return 4 * (c * ld + S * c + S * ld + S)
 
 
 def _params_device(net_params) -> torch.device:
@@ -475,6 +518,7 @@ def federate_client_params(groups: Sequence[ProfileGroup],
                            weights: np.ndarray, cluster_labels: np.ndarray,
                            n_layers: Dict[str, int] = None,
                            use_kernel: bool = False,
+                           fused: bool = True,
                            plan_cache: Optional[Dict] = None,
                            chunk_size: Optional[int] = None,
                            mesh: Any = None,
@@ -482,14 +526,25 @@ def federate_client_params(groups: Sequence[ProfileGroup],
                            ) -> Dict[str, Dict[str, Dict[str, Any]]]:
     """Aggregate client-held layers cluster-wise from host weights and
     labels (indexed by global client id). client_params: {group.name:
-    {net: {str(layer): stacked tree}}}. ``chunk_size=c`` streams the
-    round in c-client chunks; ``cohort_mask`` ([n_clients] bool) runs a
-    sampled-cohort round, with ``weights`` already renormalized over the
-    cohort (``kld.cohort_federation_weights_np``, zero outside it).
-    Returns a new client_params with the aggregated copies broadcast
-    back."""
+    {net: {str(layer): stacked tree}}}. ``fused=True`` runs the plan's
+    flat-buffer round (one K1 launch per net with ``use_kernel``);
+    ``fused=False`` the legacy per-(layer, cluster) loop, the
+    correctness oracle of full-participation dense rounds.
+    ``chunk_size=c`` streams the round in c-client chunks;
+    ``cohort_mask`` ([n_clients] bool) runs a sampled-cohort round, with
+    ``weights`` already renormalized over the cohort
+    (``kld.cohort_federation_weights_np``, zero outside it). Returns a
+    new client_params with the aggregated copies broadcast back."""
     _unsupported(mesh)
     n_layers = n_layers or N_LAYERS
+    if not fused:
+        if chunk_size is not None or cohort_mask is not None:
+            raise ValueError("the legacy loop is a full-participation "
+                             "dense oracle: chunk_size/cohort_mask "
+                             "require fused=True")
+        return _federate_client_params_legacy(
+            groups, client_params, weights, cluster_labels,
+            n_layers=n_layers, use_kernel=use_kernel)
     plan_cache = {} if plan_cache is None else plan_cache
     weights = np.asarray(weights)
     cluster_labels = np.asarray(cluster_labels)
@@ -559,6 +614,54 @@ def federate_client_params_device(
         for g in groups:
             if g.name in new_net:
                 out[g.name][net] = new_net[g.name]
+    return out
+
+
+def _federate_client_params_legacy(
+        groups: Sequence[ProfileGroup],
+        client_params: Dict[str, Dict[str, Dict[str, Any]]],
+        weights: np.ndarray, cluster_labels: np.ndarray,
+        n_layers: Dict[str, int], use_kernel: bool = False
+        ) -> Dict[str, Dict[str, Dict[str, Any]]]:
+    """The reference's quadruple loop: net x layer x cluster x member.
+    For each (layer, cluster) the owners' copies are gathered and
+    stacked, averaged with their weights renormalized over the cluster
+    (uniform where they sum to zero) and the average is written back to
+    every member. The returned trees are copies; the input is not
+    modified."""
+    weights = np.asarray(weights)
+    cluster_labels = np.asarray(cluster_labels)
+    out = {gname: {net: tree_map(torch.clone, layers)
+                   for net, layers in nets.items()}
+           for gname, nets in client_params.items()}
+    for net, n_lay in n_layers.items():
+        for layer in range(n_lay):
+            owners = [(g, pos, cid) for g in groups
+                      if layer in client_owned_layers(layer_pair(g.cut, net),
+                                                      n_lay)
+                      for pos, cid in enumerate(g.client_ids)]
+            if not owners:
+                continue
+            for c in np.unique(cluster_labels[[cid for _, _, cid in owners]]):
+                members = [(g, pos, cid) for g, pos, cid in owners
+                           if cluster_labels[cid] == c]
+                w = np.array([weights[cid] for _, _, cid in members])
+                if w.sum() <= 0:
+                    w = np.ones_like(w)
+                w = w / w.sum()
+                trees = [client_params[g.name][net][str(layer)]
+                         for g, _, _ in members]
+                stacked = tree_map(
+                    lambda *xs: torch.stack([x[pos] for x, (_, pos, _) in
+                                             zip(xs, members)]), *trees)
+                device = next(x for _, x in tree_items(stacked)).device
+                agg = weighted_average_stacked(
+                    stacked, torch.as_tensor(w, dtype=torch.float32,
+                                             device=device),
+                    use_kernel=use_kernel)
+                for g, pos, _ in members:
+                    tree_map(lambda full, a: full[pos].copy_(a),
+                             out[g.name][net][str(layer)], agg)
     return out
 
 

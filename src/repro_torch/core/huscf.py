@@ -72,16 +72,32 @@ class HuSCFConfig:
     use_kernel: bool = True          # kernels K1/K2 (the reference: False)
     steps_per_epoch: Optional[int] = None
     warmup_fed_rounds: int = 2       # vanilla FedAvg rounds (paper §4.5)
+    fused_epoch: bool = False        # True (the reference's default, a
+    #                                  scan-fused epoch) raises: the port's
+    #                                  epochs run step by step
     fused_cluster: bool = True       # False: host numpy stages 3+4
+    epoch_unroll: Optional[int] = None   # the reference's scan unroll of a
+    #                                  fused epoch; accepted, no effect here
     cohort_size: Optional[int] = None        # clients sampled per round
     agg_chunk: Optional[int] = None          # chunk-streamed aggregation
     reoptimize_every: Optional[int] = None   # ROADMAP M9b, online re-cut
+    split_program: bool = True       # False (the reference's legacy
+    #                                  hand-rolled loops) raises
 
 
 def _check_supported(cfg: HuSCFConfig) -> None:
     if cfg.reoptimize_every is not None:
         raise NotImplementedError("online re-cut is not ported yet (ROADMAP "
                                   "M9b)")
+    if cfg.fused_epoch:
+        raise NotImplementedError("fused epochs are not ported: the port "
+                                  "runs its epochs step by step (ROADMAP, "
+                                  "\"Training step as a CUDA graph\")")
+    if not cfg.split_program:
+        raise NotImplementedError("split_program=False, the reference's "
+                                  "legacy hand-rolled per-group loop "
+                                  "(build_net_apply_legacy), is not ported: "
+                                  "the port runs the compiled SplitProgram")
 
 
 def _host(mask: Optional[torch.Tensor]) -> Optional[np.ndarray]:

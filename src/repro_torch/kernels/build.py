@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the C signature of every kernel library: (function name, argtypes)
 SIGNATURES = {
-    "clustered_agg": ("clustered_agg_f32", [_P, _P, _P, _I, _I, _LL, _I, _P]),
+    "clustered_agg": ("clustered_agg_f32",
+                      [_P, _P, _P, _I, _I, _LL, _LL, _LL, _I, _P]),
     "kmeans_assign": ("kmeans_assign_f32",
                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "mem_attention": ("mem_attention_f32",

@@ -1,6 +1,7 @@
 """Public entry points of the kernels (port of ``repro.kernels.ops``).
-The federation round and the clustering stage call the first two, the
-split-serving LM the attention pair."""
+The federation round and the clustering stage call the first three (the
+legacy per-(layer, cluster) oracle ``weighted_agg``), the split-serving
+LM the attention pair."""
 from __future__ import annotations
 
 from typing import Union
@@ -11,6 +12,14 @@ from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import kmeans_assign as _km
 from repro_torch.kernels import mem_attention as _ma
 from repro_torch.kernels import weighted_agg as _wa
+
+
+def weighted_agg(stacked: torch.Tensor, weights: torch.Tensor
+                 ) -> torch.Tensor:
+    """out = sum_k w[k] * stacked[k, ...] (any trailing shape), in
+    float32, returned in stacked's dtype: K1's S = 1 case."""
+    flat = stacked.reshape(stacked.shape[0], -1)
+    return _wa.weighted_agg_flat(flat, weights).reshape(stacked.shape[1:])
 
 
 def clustered_agg(weights: torch.Tensor, stacked: torch.Tensor

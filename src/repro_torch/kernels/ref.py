@@ -10,6 +10,16 @@ import torch
 NEG_INF = -1e30         # the masked-score fill of the reference (not -inf)
 
 
+def weighted_agg_ref(stacked: torch.Tensor, weights: torch.Tensor
+                     ) -> torch.Tensor:
+    """Federated weighted average: out = sum_k w[k] x[k, ...], stacked
+    [K, ...] of any float dtype, weights [K] (already normalized);
+    accumulates in float32 and returns stacked's dtype."""
+    flat = stacked.reshape(stacked.shape[0], -1).float()
+    out = weights.float() @ flat
+    return out.reshape(stacked.shape[1:]).to(stacked.dtype)
+
+
 def clustered_agg_ref(weights: torch.Tensor, stacked: torch.Tensor
                       ) -> torch.Tensor:
     """out[s] = sum_k W[s, k] x[k] in float32: weights [S, K] (one

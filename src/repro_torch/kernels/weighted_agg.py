@@ -1,7 +1,15 @@
 """K1, clustered federated aggregation: ``agg[S, D] = W[S, K] @ theta[K, D]``
 in float32 — every (layer, cluster) aggregate of an Eq.-16 round in one
 launch per network (port of ``repro.kernels.weighted_agg``; the CUDA
-source is ``csrc/clustered_agg.cu``).
+source is ``csrc/clustered_agg.cu``). ``weighted_agg_flat`` is its S = 1
+case, one weighted average over the clients.
+
+``theta`` may be row-strided (``stride(1) == 1``, ``stride(0) >= D``):
+the federation plan pads its rows to a multiple of 32 floats, so every
+row starts on a 16-byte boundary and the kernel copies it 16 bytes at a
+time; other rows are copied 4 bytes at a time. Any S and K are taken.
+The result is a ``[S, D]`` view of a buffer whose rows are padded to a
+multiple of 4 floats.
 
 A CUDA tensor launches the hand-written kernel, or the wrapper raises.
 A CPU tensor takes the plain version, ``clustered_agg_ref``.
@@ -13,11 +21,12 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import clustered_agg_ref
 
-# shared memory a block may use on Hopper (227 KB)
-_MAX_SMEM = 232448
-
 # kernel launches since the last reset (the chip smoke test reads it)
 launches = 0
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
 
 
 def clustered_agg_flat(weights: torch.Tensor, theta: torch.Tensor
@@ -36,24 +45,36 @@ def clustered_agg_flat(weights: torch.Tensor, theta: torch.Tensor
     if weights.ndim != 2 or theta.ndim != 2 or weights.shape[1] != theta.shape[0]:
         raise ValueError(f"clustered_agg_flat: shapes {tuple(weights.shape)} "
                          f"@ {tuple(theta.shape)} do not contract")
-    if not (weights.is_contiguous() and theta.is_contiguous()):
-        raise ValueError("clustered_agg_flat takes contiguous tensors")
     S, K = weights.shape
     D = theta.shape[1]
     if min(S, K, D) == 0:
         raise ValueError(f"clustered_agg_flat: empty shape S={S} K={K} D={D}")
-    if S * K * 4 > _MAX_SMEM:
-        raise ValueError(f"clustered_agg_flat: W [{S}, {K}] exceeds the "
-                         "shared memory of one block")
-    out = torch.empty((S, D), dtype=torch.float32, device=theta.device)
-    vec4 = int(D % 4 == 0 and theta.data_ptr() % 16 == 0
-               and out.data_ptr() % 16 == 0)
+    if not weights.is_contiguous():
+        raise ValueError("clustered_agg_flat takes contiguous weights")
+    if (D > 1 and theta.stride(1) != 1) or (K > 1 and theta.stride(0) < D):
+        raise ValueError(f"clustered_agg_flat takes theta with contiguous "
+                         f"rows, got strides {theta.stride()} at shape "
+                         f"{tuple(theta.shape)}")
+    ld = theta.stride(0) if K > 1 else _round4(D)
+    buf = torch.empty((S, _round4(D)), dtype=torch.float32,
+                      device=theta.device)
+    aligned = int(ld % 4 == 0 and theta.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(theta.device).cuda_stream
     rc = build.kernel("clustered_agg")(
-        weights.data_ptr(), theta.data_ptr(), out.data_ptr(), S, K, D, vec4,
-        stream)
+        weights.data_ptr(), theta.data_ptr(), buf.data_ptr(), S, K, D, ld,
+        buf.stride(0), aligned, stream)
     if rc != 0:
         raise RuntimeError(f"clustered_agg kernel launch failed: CUDA error "
                            f"{rc}")
     launches += 1
-    return out
+    return buf[:, :D]
+
+
+def weighted_agg_flat(stacked_flat: torch.Tensor, weights: torch.Tensor
+                      ) -> torch.Tensor:
+    """stacked_flat [K, D] -> [D]: ``sum_k w[k] * stacked_flat[k]``, K1
+    with ``W = weights[None]`` in float32, cast back to the input's
+    dtype."""
+    out = clustered_agg_flat(weights.reshape(1, -1).float().contiguous(),
+                             stacked_flat.float())
+    return out[0].to(stacked_flat.dtype)

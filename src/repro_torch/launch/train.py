@@ -10,7 +10,9 @@ population on one device, with the flags and the printed lines of
 ``--device`` picks the device (default ``cuda``; asking for it on a
 machine without CUDA raises). Kernels K1/K2 are on by default
 (``--no-use-kernel`` runs their plain expressions). Float32 products
-and convolutions run in full float32: TF32 is switched off.
+and convolutions run in full float32: TF32 is switched off. Epochs run
+step by step, as the reference's ``--per-step`` runs them; the flag is
+accepted and changes nothing.
 
 Population scale: ``--cohort S`` samples S clients per federation
 round, ``--agg-chunk c`` streams every aggregation in chunks of c
@@ -62,7 +64,7 @@ def train_huscf_gan(args):
     part = (f"cohort {args.cohort}/{args.clients}" if args.cohort
             else "full participation")
     print(f"[train] GA latency model: {tr.ga_latency:.2f}s/iter, "
-          f"{len(tr.groups)} profile groups, mesh=1dev, eager epochs, "
+          f"{len(tr.groups)} profile groups, mesh=1dev, per-step epochs, "
           f"{agg} aggregation, {part}")
     for ep in range(args.epochs):
         t0 = time.time()
@@ -97,6 +99,9 @@ def main(argv=None):
                     help="hand-written CUDA kernels for aggregation and "
                          "k-means assignment (default on)")
     ap.add_argument("--fed-devices", type=int, default=None)
+    ap.add_argument("--per-step", action="store_true",
+                    help="per-step epochs (the reference's oracle loop); "
+                         "the port's epochs run step by step either way")
     ap.add_argument("--cohort", type=int, default=None,
                     help="sample this many clients per federation round "
                          "(default: full participation)")

@@ -547,6 +547,109 @@ def test_clustered_agg_chunk_tile_on_card(cuda, S, c, D, rows):
                                rtol=AGG_TOL, atol=AGG_TOL)
 
 
+def _theta_view(theta, layout):
+    """theta [K, D] laid out as ``layout``: "contiguous"; "padded", a
+    view of a buffer whose rows are padded to 32 floats (the federation
+    plan's layout: 16-byte aligned rows); "offset", the same buffer read
+    from its second column (rows 4 bytes off a 16-byte boundary)."""
+    if layout == "contiguous":
+        return theta.contiguous()
+    K, D = theta.shape
+    buf = torch.zeros((K, -(-(D + 1) // 32) * 32), device=theta.device)
+    lo = 1 if layout == "offset" else 0
+    buf[:, lo:lo + D] = theta
+    return buf[:, lo:lo + D]
+
+
+@pytest.fixture
+def no_plain_k1(monkeypatch):
+    """Make the plain version raise inside the wrapper module: a CUDA
+    call must launch the kernel and never reach it."""
+    def refuse(*_):
+        raise AssertionError("a CUDA tensor reached clustered_agg_ref")
+    monkeypatch.setattr(wa, "clustered_agg_ref", refuse)
+
+
+def _check_k1_on_card(cuda, S, K, D, layout, seed):
+    w, theta = _agg_inputs(S, K, D, seed=seed)
+    want = clustered_agg_ref(torch.from_numpy(w), torch.from_numpy(theta))
+    w = torch.from_numpy(w).to(cuda)
+    theta = _theta_view(torch.from_numpy(theta).to(cuda), layout)
+    before = wa.launches
+    got = wa.clustered_agg_flat(w, theta)
+    torch.cuda.synchronize()
+    assert wa.launches == before + 1
+    assert tuple(got.shape) == (S, D) and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=AGG_TOL, atol=AGG_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "padded", "offset"])
+@pytest.mark.parametrize("D", [4_099, 8_192, 10_001, 671_585])
+@pytest.mark.parametrize("S", [1, 3, 8, 13, 16, 24, 32, 40, 70, 130])
+def test_clustered_agg_every_row_template_on_card(cuda, no_plain_k1, S, D,
+                                                  layout):
+    """Every row template: S = 1; one group of 8 rows; two groups of 8 or
+    12; 16-row groups past that, up to 8 per block, and a second block
+    of rows at S = 130. Odd and even D, aligned and unaligned rows; K =
+    13 is not a multiple of the K-tile."""
+    _check_k1_on_card(cuda, S, 13, D, layout, seed=S + D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["padded", "offset"])
+@pytest.mark.parametrize("K", [1, 7, 15, 16, 17, 33, 48, 49, 64, 100])
+def test_clustered_agg_k_tails_on_card(cuda, no_plain_k1, K, layout):
+    """K shorter than, equal to and past the ring of K-tiles, with a
+    ragged last tile."""
+    _check_k1_on_card(cuda, 24, K, 10_001, layout, seed=K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,layout", [(24, "padded"), (24, "offset"),
+                                      (8, "padded"), (40, "padded")])
+def test_clustered_agg_above_the_old_shared_memory_cap_on_card(
+        cuda, no_plain_k1, S, layout):
+    """K = 3000 clients: S x K x 4 B is far above one block's 227 KB, the
+    cap of the kernel that staged W whole; W now streams with theta."""
+    _check_k1_on_card(cuda, S, 3000, 65_537, layout, seed=S)
+
+
+@pytest.mark.cuda
+def test_weighted_agg_flat_on_card(cuda, no_plain_k1):
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(6, 10_001)).astype(np.float32)
+    wts = rng.uniform(0.1, 1.0, 6).astype(np.float32)
+    wts /= wts.sum()
+    before = wa.launches
+    got = wa.weighted_agg_flat(torch.from_numpy(x).to(cuda).bfloat16(),
+                               torch.from_numpy(wts).to(cuda))
+    torch.cuda.synchronize()
+    assert wa.launches == before + 1 and got.dtype == torch.bfloat16
+    want = wts @ torch.from_numpy(x).bfloat16().float().numpy()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               torch.from_numpy(want).bfloat16().float()
+                               .numpy(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_clustered_agg_refuses_bad_inputs_on_card(cuda):
+    w = torch.ones((2, 3), device=cuda)
+    theta = torch.ones((3, 16), device=cuda)
+    before = wa.launches
+    with pytest.raises(TypeError):
+        wa.clustered_agg_flat(w.double(), theta.double())
+    with pytest.raises(ValueError, match="contract"):
+        wa.clustered_agg_flat(w, theta[:2])
+    with pytest.raises(ValueError, match="rows"):
+        wa.clustered_agg_flat(w, theta.T.contiguous().T)
+    with pytest.raises(ValueError, match="rows"):
+        wa.clustered_agg_flat(w, theta[:, ::2])
+    with pytest.raises(ValueError):
+        wa.clustered_agg_flat(w, theta.cpu())
+    assert wa.launches == before
+
+
 def _counters_at_zero():
     return all(int(c.abs().sum()) == 0 for c, _ in build.scratch.values())
 

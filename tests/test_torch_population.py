@@ -301,15 +301,26 @@ def test_recv_select_keeps_non_members_bit_identical(population, chunk):
 
 
 def test_buffer_bytes_equal_reference(population):
+    """The reference counts D = n_cols columns per row; the port
+    allocates its rows padded to ``row_stride`` (a multiple of 32 floats
+    that holds n_cols) and reports the bytes it allocates: the
+    reference's count with D = row_stride."""
     gj, gt, params, _, _, _ = population
     tmpl_j = {g.name: params[g.name]["G"] for g in gj}
     tmpl_t = _torch_params(tmpl_j)
     for chunk in (1, 3, 64):
         pj = jfed.FederationPlan(gj, "G", 2, tmpl_j, chunk_size=chunk)
         pt = tfed.FederationPlan(gt, "G", 2, tmpl_t, chunk_size=chunk)
-        assert pt.dense_buffer_bytes() == pj.dense_buffer_bytes()
+        ld = pt.row_stride
+        assert pt.n_cols == pj.n_cols <= ld < pj.n_cols + 32 and ld % 32 == 0
+        assert pj.dense_buffer_bytes() == 4 * pj.n_rows * pj.n_cols
+        assert pt.dense_buffer_bytes() == pj.dense_buffer_bytes() // pj.n_cols * ld
         for C in (1, 3, 6):
-            assert pt.chunked_buffer_bytes(C) == pj.chunked_buffer_bytes(C)
+            S = pt.num_segments(C)
+            assert pj.chunked_buffer_bytes(C) == 4 * (
+                chunk * pj.n_cols + S * chunk + S * pj.n_cols + S)
+            assert pt.chunked_buffer_bytes(C) == 4 * (
+                chunk * ld + S * chunk + S * ld + S)
     with pytest.raises(ValueError, match="chunk_size"):
         tfed.FederationPlan(gt, "G", 2, tmpl_t).chunked_buffer_bytes(2)
 
