@@ -21,6 +21,25 @@ Phases (any failure exits non-zero and prints no result):
      per-(layer, cluster) oracle (``fused=False``, K1's S = 1 entry
      point) agrees with the fused round, and a small trainer on the card
      agrees with the same trainer on the CPU;
+  3c. cut search and re-cut: the GA at the paper's protocol
+     (``GAConfig()``: population 1000, 60 generations, patience 15, seed
+     0; batch 64) on the paper's 100-client mix, on the card: no worse
+     than the host oracle (``fused=False``, timed once), the warm search's
+     median ms over 7 runs, one search under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host
+     synchronisation), ``population_latency`` against the host float64
+     model over 256 seeded individuals with and without client counts
+     (1e-6 relative), and one fixed set of draws giving the same
+     ``SearchOut`` on the card and on the CPU. Then ``train.main`` at full
+     width with 8 clients --base-size 24 --epochs 3 --federate-every 1
+     --reoptimize-every 1 (the counts of K1/K2 set to 0 just before and
+     read just after), epochs until a round's search adopts nothing, and
+     ``update_profile(1, degraded)`` and ``apply_churn(leave=[0],
+     join=[(new client, ultrafast)])``, each followed by one epoch and
+     its round: every rebuild holds the migration rules (owned layers,
+     server copies and EMA rows bit for bit, means within 1e-6), zeroes
+     Adam's moments and keeps the step, empties the plan cache, and the
+     round after it launches K1 and K2 and fills the cache again;
   4b. the population: ``train.main`` with --clients 512 --cohort 128
      --agg-chunk 64 --epochs 4 --federate-every 1 --base-size 24 (one
      step per epoch; two chunked cohort FedAvg rounds, then two chunked
@@ -36,7 +55,12 @@ Phases (any failure exits non-zero and prints no result):
      label-KLD round (host numpy clustering at the device round's k)
      gives finite weights that sum to 1 per (cluster, cohort); one more
      epoch and clustered round are profiled (device busy share, the
-     kernels that take the time). Prints the ``population`` line;
+     kernels that take the time). Then 16 seeded clients leave and 16
+     join on the paper's profiles (``apply_churn``: rebuild seconds, a
+     warm search's ms, peak device memory above the state), and one
+     epoch and one clustered chunked round launch K1 once per chunk tile
+     of the new groups over a cohort of 128. Prints the ``population``
+     line;
   5. GAN split serving: ``repro_torch.launch.serve_split.main --mode gan``
      at full width on both profile mixes (24 requests each); the images
      are finite, in the tanh range and equal each client's monolithic
@@ -77,9 +101,11 @@ Phases (any failure exits non-zero and prints no result):
      round of the slice's trainer, and profiles one epoch (device busy
      share, the kernels that take the time);
   9. prints a JSON line with the slice's times, the ``population``
-     line, one with the serving times (``serve``), one with the kernels
-     (K1 and K2 with their population shapes and launches), then the
-     result line.
+     line, one with the serving times (``serve``), the ``recut`` line
+     (the search, the 8-client re-cut and churn, the population's churn
+     and its stage-1 search seconds), one with the kernels (K1 and K2
+     with their population shapes, launches and the re-cut run's
+     launches), then the result line.
 
 Float32 products and convolutions run in full float32 (TF32 off).
 """
@@ -115,6 +141,7 @@ LM_TOL = 2e-4
 # round's [K, D] buffer beside the chunked one (PERF.md section 4)
 POP_CLIENTS, POP_COHORT, POP_CHUNK = 512, 128, 64
 POP_BASE_SIZE = 24              # with the launcher's batch 16: one step
+POP_CHURN = 16                  # clients that leave, and that join
 
 
 def log(msg: str) -> None:
@@ -357,6 +384,310 @@ def check_cpu_agreement() -> None:
         raise AssertionError(f"CPU vs card parameters differ by {worst}")
     log(f"small trainer CPU vs card: first losses {first}, max |dparam| "
         f"{worst:.3e}")
+
+
+def paper_mix(n: int = 100, seed: int = 0):
+    """The paper's device mix: ``n`` clients drawn uniformly over the 7
+    profiles of Table 4 from ``numpy.random.default_rng(seed)`` (the
+    recipe of ``benchmarks/latency_table.py``)."""
+    import numpy as np
+    from repro_torch.core.latency import PAPER_DEVICES
+    rng = np.random.default_rng(seed)
+    return [PAPER_DEVICES[i] for i in rng.integers(0, 7, n)]
+
+
+def run_search(device: str = "cuda") -> dict:
+    """Phase 3c, the search: ``GAConfig()`` (population 1000, 60
+    generations, patience 15, seed 0), batch 64, on the paper's
+    100-client mix. The search on the card is no worse than the host
+    oracle; one ``run`` under ``set_sync_debug_mode("error")`` makes no
+    host synchronisation; ``population_latency`` on the card matches
+    the host float64 model over 256 seeded individuals, with and
+    without client counts; one fixed set of draws gives the same
+    ``SearchOut`` on the card and on the CPU. Returns the ``search``
+    fields of the ``recut`` line."""
+    import numpy as np
+    import torch
+    from repro_torch.core import genetic as ga
+    from repro_torch.core.latency import (PAPER_SERVER,
+                                          huscf_iteration_latency)
+    from repro_torch.core.latency_device import (build_latency_tables,
+                                                 population_latency)
+    devices = paper_mix()
+    cfg = ga.GAConfig()
+    t0 = time.perf_counter()
+    host = ga.optimize_cuts(devices, batch=64, config=cfg, fused=False)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    searcher = ga.CutSearcher(devices, batch=64, config=cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    fused = searcher.to_result(searcher.run(gen))
+    first_s = time.perf_counter() - t0
+    if not fused.latency <= host.latency + 1e-9:
+        raise AssertionError(f"fused search {fused.latency} is worse than "
+                             f"the host oracle's {host.latency}")
+    warm = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        searcher.run(gen)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    # the counterpart of the reference's transfer guard: a search that
+    # synchronises with the host raises here
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = searcher.run(gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    searcher.to_result(out)
+
+    # the batched model against the host float64 model
+    rng = np.random.default_rng(3)
+    opts = searcher.options
+    per_client = build_latency_tables(devices, PAPER_SERVER, 64,
+                                      device=device)
+    worst = {}
+    for name, tables, counts, n_genes in (
+            ("per_client", per_client, None, len(devices)),
+            ("profile_counts", searcher.tables, searcher.counts,
+             searcher.n_genes)):
+        idx = rng.integers(0, len(opts), (256, n_genes))
+        got = population_latency(tables, torch.as_tensor(idx, device=device),
+                                 counts).cpu().numpy()
+        prof = None if counts is None else searcher.profile_of
+        want = np.array([huscf_iteration_latency(
+            ga._upsample_cuts(ind, prof, len(devices), opts), devices,
+            PAPER_SERVER, 64) for ind in idx])
+        worst[name] = float(np.max(np.abs(got - want) / want))
+    if not max(worst.values()) <= 1e-6:
+        raise AssertionError(f"population_latency vs host model: {worst}")
+
+    # one fixed set of draws on the card and on the CPU
+    cpu = ga.CutSearcher(devices, batch=64, config=cfg, device="cpu")
+    g_cpu = torch.Generator().manual_seed(1)
+    n_opt = len(opts)
+    init = ga.draw_initial(g_cpu, cfg, cpu.n_genes, n_opt)
+    draws = [ga.draw_generation(g_cpu, cfg, cpu.n_genes, n_opt)
+             for _ in range(cfg.generations)]
+    on_card = [ga.Draws(*(x.to(device) for x in d)) for d in draws]
+    o_cpu = cpu.run(None, init_pop=init, draws=draws.__getitem__)
+    o_dev = searcher.run(None, init_pop=init.to(device),
+                         draws=on_card.__getitem__)
+    h_cpu, h_dev = o_cpu.history.numpy(), o_dev.history.cpu().numpy()
+    same_path = (torch.equal(o_cpu.best_ind, o_dev.best_ind.cpu())
+                 and int(o_cpu.convergence_gen) == int(o_dev.convergence_gen)
+                 and int(o_cpu.generations_run) == int(o_dev.generations_run)
+                 and np.array_equal(np.isnan(h_cpu), np.isnan(h_dev))
+                 and np.allclose(h_cpu, h_dev, rtol=1e-6, equal_nan=True))
+    if not same_path:
+        raise AssertionError(f"fixed draws: card {o_dev} vs CPU {o_cpu}")
+    bitwise = bool(np.array_equal(h_cpu, h_dev, equal_nan=True)
+                   and float(o_cpu.best_latency) == float(o_dev.best_latency))
+    line = {"clients": len(devices), "population": cfg.population_size,
+            "generations": cfg.generations,
+            "patience": cfg.early_stop_patience, "batch": 64,
+            "n_genes": searcher.n_genes, "host_latency": host.latency,
+            "host_s": host_s, "host_generations_run": host.generations_run,
+            "fused_latency": fused.latency, "fused_first_s": first_s,
+            "fused_warm_ms": float(np.median(warm)), "fused_warm_ms_all": warm,
+            "generations_run": fused.generations_run,
+            "convergence_gen": fused.convergence_gen,
+            "cuts": sorted({c.as_tuple() for c in fused.cuts}),
+            "sync_free": True, "population_latency_max_rel": worst,
+            "card_vs_cpu_same_path": same_path,
+            "card_vs_cpu_bitwise": bitwise}
+    log(f"cut search (paper protocol, 100 clients): fused {fused.latency:.6f}"
+        f" s vs host {host.latency:.6f} s; host {host_s:.2f}s, fused first "
+        f"{first_s:.2f}s, warm {line['fused_warm_ms']:.2f} ms; "
+        f"{fused.generations_run} generations; no host sync; latency model "
+        f"{worst}; fixed draws card = CPU (bitwise {bitwise})")
+    return line
+
+
+def check_migration(old: dict, tr, old_of) -> dict:
+    """A rebuild's state against the migration rules, from the old groups,
+    state and EMA: a client's row of a layer it owned is its old row and
+    of a layer the old server held the server's copy, bit for bit; any
+    other row (a joiner's layer the old server never held) and a layer
+    newly on the server are the mean of the old client copies (float64
+    here, 1e-6 relative to the leaf's scale). EMA rows of survivors are
+    theirs bit for bit, a joiner's the survivor mean. Adam's moments are
+    zero and the step counter is kept. Returns the counts checked."""
+    import torch
+    from repro_torch.core.federation import N_LAYERS
+    from repro_torch.core.splitting import client_owned_layers, layer_pair
+    from repro_torch.tree import tree_items, tree_leaves
+    n_copy = n_mean = 0
+    worst = 0.0
+
+    def mean_ok(got, want64):
+        nonlocal n_mean, worst
+        scale = max(float(want64.abs().max()), 1e-30)
+        err = float((got.double() - want64).abs().max()) / scale
+        worst = max(worst, err)
+        n_mean += 1
+        if not err <= 1e-6:
+            raise AssertionError(f"migrated mean off by {err}")
+
+    def copy_ok(got, want, what):
+        nonlocal n_copy
+        n_copy += 1
+        if not same_bits(got, want):
+            raise AssertionError(f"migrated copy differs: {what}")
+
+    for net in ("G", "D"):
+        n = N_LAYERS[net]
+        owned = {g.name: set(client_owned_layers(layer_pair(g.cut, net), n))
+                 for g in old["groups"]}
+        loc = {cid: (g.name, pos) for g in old["groups"]
+               for pos, cid in enumerate(g.client_ids)}
+        o_client = old["state"][net]["client"]
+        o_server = old["state"][net]["server"]
+
+        def mean64(l):
+            stacks = [dict(tree_items(o_client[g.name][str(l)]))
+                      for g in old["groups"] if l in owned[g.name]]
+            return {p: torch.cat([s[p] for s in stacks]).double().mean(0)
+                    for p in stacks[0]}
+
+        for g in tr.groups:
+            for layer, tree in tr.state[net]["client"][g.name].items():
+                l = int(layer)
+                new = dict(tree_items(tree))
+                for pos, cid in enumerate(g.client_ids):
+                    o = old_of[cid]
+                    if o >= 0 and l in owned[loc[o][0]]:
+                        src = dict(tree_items(o_client[loc[o][0]][layer]))
+                        for p, x in new.items():
+                            copy_ok(x[pos], src[p][loc[o][1]],
+                                    f"{net} {g.name} layer {l} client {cid}")
+                    elif layer in o_server:
+                        src = dict(tree_items(o_server[layer]))
+                        for p, x in new.items():
+                            copy_ok(x[pos], src[p],
+                                    f"{net} {g.name} layer {l} client {cid} "
+                                    "(server copy)")
+                    else:
+                        want = mean64(l)
+                        for p, x in new.items():
+                            mean_ok(x[pos], want[p])
+        for layer, tree in tr.state[net]["server"].items():
+            new = dict(tree_items(tree))
+            if layer in o_server:
+                src = dict(tree_items(o_server[layer]))
+                for p, x in new.items():
+                    copy_ok(x, src[p], f"{net} server layer {layer}")
+            else:
+                want = mean64(int(layer))
+                for p, x in new.items():
+                    mean_ok(x, want[p])
+    surv = [(i, o) for i, o in enumerate(old_of) if o >= 0]
+    for i, o in surv:
+        copy_ok(tr._mid_ema[i], old["ema"][o], f"EMA row {i}")
+    fill = old["ema"][[o for _, o in surv]].double().mean(0)
+    for i, o in enumerate(old_of):
+        if o < 0:
+            mean_ok(tr._mid_ema[i], fill)
+    for opt in ("opt_g", "opt_d"):
+        st = tr.state[opt]
+        if st.step != 0 or any(bool(x.any()) for x in
+                               tree_leaves(st.mu) + tree_leaves(st.nu)):
+            raise AssertionError(f"{opt} was not re-initialised")
+    if tr.state["step"] != old["step"]:
+        raise AssertionError(f"step {tr.state['step']} != {old['step']}")
+    return {"copies": n_copy, "means": n_mean, "max_mean_rel": worst}
+
+
+def run_recut(train_main, device: str = "cuda") -> dict:
+    """Phase 3c, re-cut and churn at full width: ``train.main`` with 8
+    clients, --reoptimize-every 1 (the counts of K1/K2 set to 0 just
+    before and read just after), epochs until a round's search adopts
+    nothing; then a degraded profile for client 1 and a churn (client 0
+    leaves, a client on an unseen fast profile joins), each followed by
+    one epoch and its round. Each rebuild is held to the migration rules
+    (``check_migration``), empties the plan cache, and the round after
+    it launches K1 and K2 and fills the cache again. Returns the
+    ``slice`` fields of the ``recut`` line."""
+    import torch
+    from repro_torch.core.latency import DeviceProfile
+    from repro_torch.data.partition import build_scenario
+    from repro_torch.kernels import kmeans_assign as km
+    from repro_torch.kernels import weighted_agg as wa
+    wa.launches = 0
+    km.launches = 0
+    t0 = time.perf_counter()
+    tr = train_main(["--arch", "huscf-gan", "--clients", "8", "--base-size",
+                     "24", "--epochs", "3", "--federate-every", "1",
+                     "--reoptimize-every", "1", "--device", device])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"clustered_agg": wa.launches, "kmeans_assign": km.launches}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched in the "
+                                 "re-cut run")
+    settle = 0
+    while tr.fed_log[-1]["recut"] and settle < 5:
+        tr.train_epoch()
+        settle += 1
+    recuts = [d["recut"] for d in tr.fed_log]
+    if recuts[-1] is not False:
+        raise AssertionError(f"the per-round search never settled: {recuts}")
+    log(f"re-cut run ({run_s:.1f}s, GA {tr.ga_seconds:.2f}s): recut per "
+        f"round {recuts}; launches {launches}")
+
+    slow = DeviceProfile("degraded", 0.25e9, 4.0, 1.2e6)
+    fast = DeviceProfile("ultrafast", 3.0e9, 64.0, 500e6)
+    joiner = build_scenario("2dom_noniid", num_clients=8, base_size=24,
+                            seed=1)[0]
+    events = {}
+    for name in ("update_profile", "churn"):
+        old = {"groups": list(tr.groups), "ema": tr._mid_ema,
+               "step": tr.state["step"],
+               "state": {net: tr.state[net] for net in ("G", "D")}}
+        old_of = (list(range(len(tr.clients))) if name == "update_profile"
+                  else tr.registry.churn([0], [joiner.n])[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "update_profile":
+            tr.update_profile(1, slow)
+        else:
+            tr.apply_churn(leave=[0], join=[(joiner, fast)])
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t0
+        if tr._fed_plans:
+            raise AssertionError(f"{name}: the plan cache survived the "
+                                 "rebuild")
+        checked = check_migration(old, tr, old_of)
+        del old
+        wa.launches = 0
+        km.launches = 0
+        tr.train_epoch()
+        torch.cuda.synchronize()
+        after = {"clustered_agg": wa.launches, "kmeans_assign": km.launches}
+        diag = tr.fed_log[-1]
+        if min(after.values()) <= 0 or not tr._fed_plans or \
+                diag["mode"] != "clustered":
+            raise AssertionError(f"{name}: the round after the rebuild "
+                                 f"launched {after}, mode {diag['mode']}, "
+                                 f"{len(tr._fed_plans)} plans")
+        for net in ("G", "D"):
+            if not all_finite(tr.state[net]):
+                raise AssertionError(f"{name}: non-finite {net} state")
+        events[name] = {"rebuild_s": rebuild_s, "migration": checked,
+                        "groups": [g.name for g in tr.groups],
+                        "launches_after": after,
+                        "recut_after": diag.get("recut")}
+        log(f"{name}: rebuild {rebuild_s:.3f}s, migration {checked}, "
+            f"groups {events[name]['groups']}, round after: {after}")
+    if len(tr.clients) != 8 or tr.devices[-1] is not fast:
+        raise AssertionError("the churn did not swap client 0 for the "
+                             "joiner")
+    return {"clients": 8, "run_s": run_s, "ga_s": tr.ga_seconds,
+            "recut_per_round": recuts, "settle_epochs": settle,
+            "launches": launches, "events": events}
 
 
 def check_kernels(tr):
@@ -833,6 +1164,7 @@ def run_population(train_main, device: str = "cuda") -> dict:
     log(f"population profiles: epoch busy share "
         f"{prof_epoch.get('busy_share')}, round busy share "
         f"{prof_round.get('busy_share')}")
+    churn = run_population_churn(tr, steps)
     line = {"clients": POP_CLIENTS, "cohort": POP_COHORT, "chunk": POP_CHUNK,
             "groups": len(tr.groups), "group_sizes": [g.size
                                                       for g in tr.groups],
@@ -853,9 +1185,81 @@ def run_population(train_main, device: str = "cuda") -> dict:
             "profile_round": prof_round,
             "label_kld_k": lk["k"],
             "k1_D": {net: plans[(net, None)].n_cols for net in ("G", "D")},
-            "S": plans[("G", None)].num_segments(bound)}
+            "S": plans[("G", None)].num_segments(bound), "churn": churn}
     del tr
     torch.cuda.empty_cache()
+    return line
+
+
+def run_population_churn(tr, steps: int) -> dict:
+    """The population's churn: POP_CHURN seeded clients leave and as many
+    new clients join on the paper's profiles (the cuts re-derived by a
+    search on the card), then one epoch and one clustered chunked round,
+    with the counts set to 0 just before the round and read just after:
+    K1 once per chunk tile of the new groups, the cohort as configured.
+    Times the rebuild, a warm search over the new population, and the
+    peak device memory above the state during the rebuild."""
+    import numpy as np
+    import torch
+    from repro_torch.core.latency import PAPER_DEVICES
+    from repro_torch.data.partition import build_scenario
+    from repro_torch.kernels import kmeans_assign as km
+    from repro_torch.kernels import weighted_agg as wa
+    rng = np.random.default_rng(POP_CLIENTS)
+    leave = sorted(int(c) for c in rng.choice(POP_CLIENTS, POP_CHURN,
+                                              replace=False))
+    joiners = build_scenario("2dom_noniid", num_clients=POP_CHURN,
+                             base_size=POP_BASE_SIZE, seed=1)
+    join = [(c, PAPER_DEVICES[i % 7]) for i, c in enumerate(joiners)]
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr.apply_churn(leave=leave, join=join)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - state_bytes
+    if tr.registry.n_clients != POP_CLIENTS or tr._fed_plans:
+        raise AssertionError(f"churn left {tr.registry.n_clients} clients "
+                             f"and {len(tr._fed_plans)} plans")
+    searcher = tr._get_searcher()
+    gen = torch.Generator(device=tr.device).manual_seed(5)
+    searcher.run(gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    searcher.run(gen)
+    torch.cuda.synchronize()
+    search_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    tr.train_steps(steps)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    wa.launches = 0
+    km.launches = 0
+    t0 = time.perf_counter()
+    diag = tr.federate()
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = {"clustered_agg": wa.launches, "kmeans_assign": km.launches}
+    tiles = k1_tiles(tr.groups, POP_CHUNK)
+    if diag["mode"] != "clustered" or launches["clustered_agg"] != 2 * tiles \
+            or launches["kmeans_assign"] <= 0:
+        raise AssertionError(f"round after churn ({diag['mode']}): launches "
+                             f"{launches}, K1 reckoned {2 * tiles}")
+    if len(diag["cohort"]) != POP_COHORT:
+        raise AssertionError(f"cohort of {len(diag['cohort'])} after churn")
+    for net in ("G", "D"):
+        if not all_finite(tr.state[net]):
+            raise AssertionError(f"non-finite {net} state after churn")
+    line = {"leave": POP_CHURN, "join": POP_CHURN, "rebuild_s": rebuild_s,
+            "search_ms": search_ms, "state_bytes": state_bytes,
+            "rebuild_peak_bytes_above_state": peak,
+            "groups": len(tr.groups), "group_sizes": [g.size
+                                                      for g in tr.groups],
+            "cuts": sorted({c.as_tuple() for c in tr.cuts}),
+            "epoch_s": epoch_s, "round_s": round_s, "k1_tiles": tiles,
+            "launches": launches}
+    log(f"population churn: {line}")
     return line
 
 
@@ -1332,14 +1736,20 @@ def main() -> int:
     check_slice(tr)
     legacy = check_legacy_oracle(tr)
     check_cpu_agreement()
+    t0 = time.perf_counter()
+    search = run_search()
+    recut_slice = run_recut(train_main)
+    recut_s = time.perf_counter() - t0
     gan_serve = check_gan_serving(serve_main)
     lm_serve = check_lm_serving(serve_main)
     t0 = time.perf_counter()
     population = run_population(train_main)
     population["phase_s"] = time.perf_counter() - t0
+    pop_churn = population.pop("churn")
     kernels = check_kernels(tr)
     for k in kernels:
         k["launches"] = counts[k["name"]]
+        k["recut_launches"] = recut_slice["launches"][k["name"]]
     kernels[0]["s1"]["launches"] = legacy["k1_launches"]
     gen = torch.Generator(device="cuda").manual_seed(1)
     pop_k = time_population_kernels(gen, population["k1_D"]["G"],
@@ -1384,6 +1794,11 @@ def main() -> int:
     print(json.dumps({"population": population}), flush=True)
     print(json.dumps({"serve": {"gan": gan_serve, "lm": lm_serve}}),
           flush=True)
+    print(json.dumps({"recut": {
+        "search": search, "slice": recut_slice,
+        "population_churn": pop_churn,
+        "population_stage1_ga_s": population["ga_s"],
+        "phase_s": recut_s}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """HuSCF-GAN trainer — the paper's five-stage procedure (§4.1), in
 PyTorch (port of ``repro.core.huscf``).
 
-1. GA cut selection from device capabilities (host numpy GA).
+1. GA cut selection from device capabilities (``core.genetic``'s search
+   on the trainer's device).
 2. Heterogeneous U-shaped split training of G and D (``core.segments``).
 3. Every E epochs: k-means on the discriminator's middle-activation EMA.
 4. Log-space KLD weights, then the clustered Eq.-16 aggregation of the
@@ -20,11 +21,18 @@ clients (``core.registry``) per round from the trainer's own cohort
 generator, and ``agg_chunk`` streams every aggregation in client chunks
 instead of the dense ``[K, D]`` buffer.
 
+Online re-cut and churn: ``reoptimize_every`` re-runs the GA search on
+the device every that many rounds and regroups only on strictly better
+cuts; ``apply_churn`` (clients leave and join) and ``update_profile`` (a
+client reports new capabilities) re-derive the cuts for the changed
+population. Each regroup migrates the client and server parameters and
+the middle-activation EMA to the new groups, restarts Adam's moments,
+re-stages the dataset and empties the federation plan cache.
+
 ``generate`` runs the generator's split program in eval mode.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: online re-cut and churn (M9b) and mesh-sharded federation
-(M10).
+Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
+item: mesh-sharded federation (M10).
 """
 from __future__ import annotations
 
@@ -43,12 +51,14 @@ from repro_torch.core.clustering import (cluster_activations,
 from repro_torch.core.federation import (N_LAYERS, federate_client_params,
                                          federate_client_params_device,
                                          fedavg_uniform)
-from repro_torch.core.genetic import GAConfig, optimize_cuts
+from repro_torch.core.genetic import CutSearcher, GAConfig, optimize_cuts
 from repro_torch.core.latency import (Cut, DeviceProfile, PAPER_DEVICES,
                                       PAPER_SERVER, huscf_iteration_latency)
 from repro_torch.core.registry import ClientRegistry
 from repro_torch.core.segments import compile_split_program, make_apply
-from repro_torch.core.splitting import group_by_profile, server_union_span
+from repro_torch.core.splitting import (ProfileGroup, client_owned_layers,
+                                        group_by_profile, layer_pair,
+                                        server_union_span)
 from repro_torch.data.partition import ClientSpec
 from repro_torch.data.pipeline import sample_batch, stage_clients
 from repro_torch.models import gan
@@ -80,15 +90,14 @@ class HuSCFConfig:
     #                                  fused epoch; accepted, no effect here
     cohort_size: Optional[int] = None        # clients sampled per round
     agg_chunk: Optional[int] = None          # chunk-streamed aggregation
-    reoptimize_every: Optional[int] = None   # ROADMAP M9b, online re-cut
+    reoptimize_every: Optional[int] = None   # re-cut every this many
+    #                                  rounds (strictly better cuts only);
+    #                                  None = static cuts (the paper)
     split_program: bool = True       # False (the reference's legacy
     #                                  hand-rolled loops) raises
 
 
 def _check_supported(cfg: HuSCFConfig) -> None:
-    if cfg.reoptimize_every is not None:
-        raise NotImplementedError("online re-cut is not ported yet (ROADMAP "
-                                  "M9b)")
     if cfg.fused_epoch:
         raise NotImplementedError("fused epochs are not ported: the port "
                                   "runs its epochs step by step (ROADMAP, "
@@ -152,15 +161,16 @@ class HuSCFTrainer:
         self.devices = list(devices)
         self.server_profile = server
 
-        # Stage 1: GA cut selection
+        # Stage 1: GA cut selection, on the trainer's device
         self._ga_config = ga_config or GAConfig(population_size=200,
                                                 generations=30,
                                                 seed=config.seed)
-        self.ga_seconds: Optional[float] = None    # host time of the GA
+        self.ga_seconds: Optional[float] = None    # wall time of the GA
         if cuts is None:
             t0 = time.perf_counter()
             result = optimize_cuts(self.devices, server, batch=config.batch,
-                                   config=self._ga_config)
+                                   config=self._ga_config,
+                                   device=self.device)
             self.ga_seconds = time.perf_counter() - t0
             cuts = result.cuts
             self.ga_latency = result.latency
@@ -185,6 +195,11 @@ class HuSCFTrainer:
         # generator so that enabling them never shifts the cluster stream
         self.registry = ClientRegistry.from_clients(self.clients)
         self._cohort_gen = self._generator(config.seed + 3)
+        # online re-cut: the GA's own generator, and one staged searcher
+        # per device population (a new one only on churn or a profile
+        # change)
+        self._ga_gen = self._generator(config.seed + 4)
+        self._searchers: Dict = {}
         self._mid_ema = torch.zeros((K, DISC_MIDDLE_FEATURES),
                                     dtype=torch.float32, device=self.device)
         self._ema_init = False
@@ -354,6 +369,13 @@ class HuSCFTrainer:
         candidate k to the k-means++ centres of the device path, and
         ``cohort_ids`` replaces this round's cohort draw."""
         self.fed_round += 1
+        recut = None
+        if (self.cfg.reoptimize_every is not None
+                and self.fed_round % self.cfg.reoptimize_every == 0):
+            # one search on the device against the current profiles;
+            # regroups (and empties the plan cache) only on strictly
+            # better cuts
+            recut = self.reoptimize_cuts()
         cohort_mask = None
         if self.cfg.cohort_size is not None:
             if cohort_ids is None:
@@ -376,6 +398,8 @@ class HuSCFTrainer:
             diag = self._federate_host(use_label_kld, _host(cohort_mask))
         if cohort_ids is not None:
             diag["cohort"] = cohort_ids
+        if recut is not None:
+            diag["recut"] = recut
         self.fed_log.append(diag)
         return diag
 
@@ -441,11 +465,239 @@ class HuSCFTrainer:
                 "silhouette": cl.silhouette, "labels": cl.labels,
                 "weights": weights, "klds": klds}
 
-    def reoptimize_cuts(self, *args, **kwargs):
-        raise NotImplementedError("online re-cut is not ported yet (ROADMAP "
-                                  "M9b)")
+    # -- online cut re-optimization and population churn -------------------
+    def _get_searcher(self, devices: Optional[Sequence[DeviceProfile]] = None
+                      ) -> CutSearcher:
+        """The staged searcher for a device population (default: the
+        current one), cached so that repeated searches against an
+        unchanged population build nothing."""
+        devices = self.devices if devices is None else list(devices)
+        key = (tuple(devices), self.server_profile, self.cfg.batch,
+               dataclasses.astuple(self._ga_config))
+        s = self._searchers.get(key)
+        if s is None:
+            s = self._searchers[key] = CutSearcher(
+                devices, self.server_profile, batch=self.cfg.batch,
+                config=self._ga_config, device=self.device)
+        return s
 
-    apply_churn = update_profile = reoptimize_cuts
+    def _run_search(self, searcher: CutSearcher):
+        """One search on the device from the trainer's GA generator (each
+        search advances it). Nothing in it reads back to the host; the
+        readback happens in ``to_result``."""
+        return searcher.run(self._ga_gen)
+
+    def reoptimize_cuts(self) -> bool:
+        """Re-run the GA against the current device population; when it
+        finds strictly better cuts than the live ones, regroup online.
+        Returns whether the cuts changed: a search that only ties or
+        loses against the incumbent changes nothing."""
+        searcher = self._get_searcher()
+        result = searcher.to_result(self._run_search(searcher))
+        current = huscf_iteration_latency(self.cuts, self.devices,
+                                          self.server_profile,
+                                          self.cfg.batch)
+        if result.latency >= current * (1 - 1e-9):
+            return False
+        self.ga_latency = result.latency
+        self._rebuild_population(self.clients, self.devices, result.cuts,
+                                 old_of=list(range(len(self.clients))))
+        return True
+
+    def apply_churn(self, leave: Sequence[int] = (),
+                    join: Sequence[Tuple[ClientSpec, DeviceProfile]] = ()
+                    ) -> List[Cut]:
+        """Registry churn: ``leave`` are global client ids exiting,
+        ``join`` (ClientSpec, DeviceProfile) pairs entering. Membership
+        changed, so the cuts are re-derived unconditionally and the
+        population rebuilds: survivors keep their trained parameters and
+        EMA rows under their new ids, joiners start from the server's
+        copies (the population mean where the server has none). Returns
+        the new per-client cuts."""
+        join = list(join)
+        _, old_of = self.registry.churn(leave, [spec.n for spec, _ in join])
+        joiners = iter(join)
+        new_clients, new_devices = [], []
+        for o in old_of:
+            if o >= 0:
+                new_clients.append(self.clients[o])
+                new_devices.append(self.devices[o])
+            else:
+                spec, dev = next(joiners)
+                new_clients.append(spec)
+                new_devices.append(dev)
+        searcher = self._get_searcher(new_devices)
+        result = searcher.to_result(self._run_search(searcher))
+        self.ga_latency = result.latency
+        self._rebuild_population(new_clients, new_devices, result.cuts,
+                                 old_of)
+        return list(self.cuts)
+
+    def update_profile(self, cid: int, profile: DeviceProfile) -> List[Cut]:
+        """A registered client reports new capabilities (bandwidth or
+        frequency drift): re-derive the cuts for the updated population
+        and regroup. The client keeps its dataset, parameters and EMA
+        row."""
+        if not 0 <= cid < len(self.clients):
+            raise ValueError(f"unknown client id {cid}")
+        new_devices = list(self.devices)
+        new_devices[cid] = profile
+        searcher = self._get_searcher(new_devices)
+        result = searcher.to_result(self._run_search(searcher))
+        self.ga_latency = result.latency
+        self._rebuild_population(self.clients, new_devices, result.cuts,
+                                 old_of=list(range(len(self.clients))))
+        return list(self.cuts)
+
+    def _index(self, ids: Sequence[int]) -> torch.Tensor:
+        return torch.as_tensor(ids, dtype=torch.long, device=self.device)
+
+    def _migrate_client_params(self, net: str,
+                               new_groups: Sequence[ProfileGroup],
+                               old_of: Sequence[int]) -> Dict[str, Any]:
+        """Client parameters for a rebuild; ``old_of[new_cid]`` is the old
+        global id (-1: a joiner). A layer the client already owned keeps
+        its trained copy; a layer it newly owns takes the server's copy
+        (the server held it while the client delegated it); joiners take
+        the server's copies too, and the old population mean for a layer
+        the old server never held (every old client owned it). Each
+        group's rows are gathered with one ``index_select`` per old
+        group and leaf."""
+        n = N_LAYERS[net]
+        old_server = self.state[net]["server"]
+        old_client = self.state[net]["client"]
+        old_owned = {g.name: set(client_owned_layers(layer_pair(g.cut, net),
+                                                     n))
+                     for g in self.groups}
+        old_loc = {cid: (g.name, pos) for g in self.groups
+                   for pos, cid in enumerate(g.client_ids)}
+        mean_cache: Dict[int, Any] = {}
+
+        def shared_copy(l: int):
+            if str(l) in old_server:
+                return old_server[str(l)]
+            if l not in mean_cache:
+                stacks = [old_client[g.name][str(l)] for g in self.groups
+                          if l in old_owned[g.name]]
+                mean_cache[l] = tree_map(
+                    lambda *xs: torch.cat(xs, 0).mean(0), *stacks)
+            return mean_cache[l]
+
+        out = {}
+        for g in new_groups:
+            out[g.name] = {}
+            for l in client_owned_layers(layer_pair(g.cut, net), n):
+                # rows copied from each old group, and the rows that take
+                # the shared (server or mean) copy
+                own: Dict[str, Tuple[List[int], List[int]]] = {}
+                shared = []
+                for pos, cid in enumerate(g.client_ids):
+                    o = old_of[cid]
+                    if o >= 0 and l in old_owned[old_loc[o][0]]:
+                        gname, row = old_loc[o]
+                        dst, src = own.setdefault(gname, ([], []))
+                        dst.append(pos)
+                        src.append(row)
+                    else:
+                        shared.append(pos)
+                sources = [(self._index(dst), self._index(src),
+                            dict(tree_items(old_client[gname][str(l)])))
+                           for gname, (dst, src) in own.items()]
+                base = dict(tree_items(shared_copy(l))) if shared else None
+                shared_idx = self._index(shared)
+                items = []
+                for path, x in (base if base is not None
+                                else sources[0][2]).items():
+                    shape = x.shape if base is not None else x.shape[1:]
+                    leaf = torch.empty((g.size,) + tuple(shape),
+                                       dtype=x.dtype, device=x.device)
+                    for dst, src, tree in sources:
+                        leaf.index_copy_(0, dst, tree[path].index_select(0,
+                                                                          src))
+                    if base is not None:
+                        leaf[shared_idx] = base[path]
+                    items.append((path, leaf))
+                out[g.name][str(l)] = tree_from_items(items)
+        return out
+
+    def _migrate_server_params(self, net: str,
+                               new_groups: Sequence[ProfileGroup]
+                               ) -> Dict[str, Any]:
+        """The server span under the new cuts: layers the server already
+        held keep their trained copies; a layer newly delegated to the
+        server starts from the mean of the old client copies (every old
+        client that hosted it owned it)."""
+        n = N_LAYERS[net]
+        old_server = self.state[net]["server"]
+        old_client = self.state[net]["client"]
+        new_server = {}
+        for l in server_union_span(new_groups, net, n):
+            if str(l) in old_server:
+                new_server[str(l)] = old_server[str(l)]
+                continue
+            stacks = [old_client[g.name][str(l)] for g in self.groups
+                      if l in client_owned_layers(layer_pair(g.cut, net), n)]
+            new_server[str(l)] = tree_map(
+                lambda *xs: torch.cat(xs, 0).mean(0), *stacks)
+        return new_server
+
+    def _rebuild_population(self, new_clients: Sequence[ClientSpec],
+                            new_devices: Sequence[DeviceProfile],
+                            new_cuts: Sequence[Cut],
+                            old_of: Sequence[int]) -> None:
+        """Swap in a new (clients, devices, cuts) population online:
+        migrate parameters, optimizer and EMA, re-stage the dataset,
+        rebuild the split programs and empty the federation plan cache
+        (its keys hold the old groups)."""
+        K_new = len(new_clients)
+        if self.cfg.cohort_size is not None and not (
+                1 <= self.cfg.cohort_size <= K_new):
+            raise ValueError(
+                f"cohort_size {self.cfg.cohort_size} out of range for "
+                f"{K_new} registered clients after churn")
+        new_groups = group_by_profile(new_devices, new_cuts)
+        new_state: Dict[str, Any] = {}
+        for net in ("G", "D"):
+            new_state[net] = {
+                "client": self._migrate_client_params(net, new_groups,
+                                                      old_of),
+                "server": self._migrate_server_params(net, new_groups)}
+        # Adam's moments restart for the migrated structure; the step
+        # counter survives
+        new_state["opt_g"] = self._opt_init(new_state["G"])
+        new_state["opt_d"] = self._opt_init(new_state["D"])
+        new_state["step"] = self.state["step"]
+        # the EMA is indexed by global client: survivors keep their rows
+        # under the new ids, joiners start from the survivor mean once
+        # the EMA holds activations
+        new_ema = torch.zeros((K_new, self._mid_ema.shape[1]),
+                              dtype=torch.float32, device=self.device)
+        surv = [i for i, o in enumerate(old_of) if o >= 0]
+        if surv:
+            rows = self._mid_ema.index_select(
+                0, self._index([old_of[i] for i in surv]))
+            new_ema[self._index(surv)] = rows
+            if self._ema_init and len(surv) < K_new:
+                new_ema[self._index([i for i, o in enumerate(old_of)
+                                     if o < 0])] = rows.mean(0)
+
+        self.clients = list(new_clients)
+        self.devices = list(new_devices)
+        self.cuts = list(new_cuts)
+        self.groups = new_groups
+        self.sizes = np.array([c.n for c in self.clients], np.int64)
+        self.registry = ClientRegistry.from_clients(self.clients)
+        self._dataset = stage_clients(self.groups, self.clients, self.device)
+        self.state = new_state
+        self._mid_ema = new_ema
+        self._sizes_dev = torch.as_tensor(self.sizes, dtype=torch.float32,
+                                          device=self.device)
+        self._rows = {g.name: self._index(g.client_ids) for g in self.groups}
+        # everything keyed on the old grouping is stale
+        self._fed_plans.clear()
+        self._gen_apply = make_apply(compile_split_program(self.groups, "G"))
+        self._disc_apply = make_apply(compile_split_program(self.groups, "D"),
+                                      capture_middle=True)
 
     # -- generation for evaluation ------------------------------------------
     def generate(self, n_per_client_batch: int, labels: np.ndarray

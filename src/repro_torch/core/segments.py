@@ -1,6 +1,7 @@
 """SplitProgram — one compiled representation of a cut configuration
 (port of ``repro.core.segments``: the program table, the executor that
-training and serving run, and the analytic latency of the same program).
+training and serving run, the analytic latency of the same program, and
+the Eq. 7/8 schedule recurrence that the batched latency model shares).
 
 A cut configuration compiles once into per-group client heads, a
 sequence of server steps with explicit join/depart barriers, and
@@ -170,6 +171,28 @@ def make_apply(program: SplitProgram, capture_middle: bool = False
 
 
 # ---------------------------------------------------------------------------
+# Eq. 7/8 schedule recurrence (shared with core.latency_device)
+# ---------------------------------------------------------------------------
+
+def join_barrier_scan(terms: torch.Tensor, barriers: torch.Tensor,
+                      reverse: bool = False) -> torch.Tensor:
+    """Eq. 7/8 cumulative server schedule over the last (layer) axis of
+    ``[..., n]`` tensors: ``S[i+1] = max(S[i] + terms[i], barriers[i])``
+    from a float32 0, swept top-down with ``reverse=True`` for the
+    backward Eq. 8. Returns the ``[..., n]`` cumulative values in layer
+    order; leading axes (a GA population) are batched. ``n`` is static
+    (5 layers), so the loop unrolls."""
+    n = terms.shape[-1]
+    s = torch.zeros(terms.shape[:-1], dtype=torch.float32,
+                    device=terms.device)
+    out = [None] * n
+    for i in (range(n - 1, -1, -1) if reverse else range(n)):
+        s = torch.maximum(s + terms[..., i], barriers[..., i])
+        out[i] = s
+    return torch.stack(out, -1)
+
+
+# ---------------------------------------------------------------------------
 # analytic latency evaluated from the program structure (host float64)
 # ---------------------------------------------------------------------------
 
@@ -238,6 +261,16 @@ def program_net_latency(program: SplitProgram,
     L_b = max(S_b[h] + down_b[g] + head_b[g]
               for g, (h, _) in zip(names, program.cuts))
     return L_f, L_b
+
+
+def program_iteration_latency(prog_g: SplitProgram, prog_d: SplitProgram,
+                              profiles: Mapping[str, DeviceProfile],
+                              server: DeviceProfile = PAPER_SERVER,
+                              batch: int = 64) -> float:
+    """Eq. 10 from two compiled programs: L = gf + gb + 3 (df + db)."""
+    gf, gb = program_net_latency(prog_g, profiles, server, batch)
+    df, db = program_net_latency(prog_d, profiles, server, batch)
+    return gf + gb + 3.0 * (df + db)
 
 
 def program_forward_latency(program: SplitProgram,

@@ -23,8 +23,11 @@ checkpoint format and layouts:
       --clients 512 --cohort 128 --agg-chunk 64 --epochs 4 \
       --federate-every 1 --base-size 24
 
-The LM trainer, ``--fed-devices`` (ROADMAP M10) and
-``--reoptimize-every`` (M9b) raise.
+``--reoptimize-every N`` re-runs the GA cut search on the device every
+N federation rounds and regroups the population when it finds strictly
+better cuts.
+
+The LM trainer and ``--fed-devices`` (ROADMAP M10) raise.
 """
 from __future__ import annotations
 
@@ -41,12 +44,9 @@ def train_huscf_gan(args):
     from repro_torch.core.latency import PAPER_DEVICES
     from repro_torch.data.partition import build_scenario
 
-    unported = {"fed_devices": "M10, mesh code",
-                "reoptimize_every": "M9b, online re-cut"}
-    for flag, item in unported.items():
-        if getattr(args, flag) not in (None, False, 1):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not "
-                                      f"ported yet (ROADMAP {item})")
+    if args.fed_devices not in (None, 1):
+        raise NotImplementedError("--fed-devices is not ported yet (ROADMAP "
+                                  "M10, mesh code)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     clients = build_scenario(args.scenario, num_clients=args.clients,
@@ -58,14 +58,18 @@ def train_huscf_gan(args):
                                          seed=args.seed,
                                          use_kernel=args.use_kernel,
                                          cohort_size=args.cohort,
-                                         agg_chunk=args.agg_chunk),
+                                         agg_chunk=args.agg_chunk,
+                                         reoptimize_every=(
+                                             args.reoptimize_every)),
                       device=args.device)
     agg = (f"chunked({args.agg_chunk})" if args.agg_chunk else "dense")
     part = (f"cohort {args.cohort}/{args.clients}" if args.cohort
             else "full participation")
+    reopt = (f", re-cut every {args.reoptimize_every} rounds"
+             if args.reoptimize_every else "")
     print(f"[train] GA latency model: {tr.ga_latency:.2f}s/iter, "
           f"{len(tr.groups)} profile groups, mesh=1dev, per-step epochs, "
-          f"{agg} aggregation, {part}")
+          f"{agg} aggregation, {part}{reopt}")
     for ep in range(args.epochs):
         t0 = time.time()
         m = tr.train_epoch()
@@ -108,7 +112,9 @@ def main(argv=None):
     ap.add_argument("--agg-chunk", type=int, default=None,
                     help="stream aggregation in client chunks of this "
                          "size instead of the dense [K, D] buffer")
-    ap.add_argument("--reoptimize-every", type=int, default=None)
+    ap.add_argument("--reoptimize-every", type=int, default=None,
+                    help="re-run the GA cut search every this many "
+                         "federation rounds (default: static cuts)")
     ap.add_argument("--ckpt", default=None,
                     help="write the final state to this checkpoint file")
     ap.add_argument("--device", default="cuda",

@@ -546,8 +546,7 @@ def test_launcher_population_flags_on_cpu(tmp_path, capsys):
     assert step == 3
 
 
-@pytest.mark.parametrize("flag,item", [("--reoptimize-every", "M9b"),
-                                       ("--fed-devices", "M10")])
+@pytest.mark.parametrize("flag,item", [("--fed-devices", "M10")])
 def test_launcher_unported_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         ttrain.main(["--arch", "huscf-gan", "--device", "cpu", flag, "2"])
