@@ -61,6 +61,22 @@ Phases (any failure exits non-zero and prints no result):
      epoch and one clustered chunked round launch K1 once per chunk tile
      of the new groups over a cohort of 128. Prints the ``population``
      line;
+  4c. quality: ``repro_torch.launch.quality.run_scenario`` on
+     ``2dom_noniid`` at the paper's Table-3 widths, 8 clients on
+     ``PAPER_DEVICES[i % 7]``, base size 128, batch 16, 6 epochs with a
+     federation every 2 (two FedAvg rounds, then a clustered one): first
+     HuSCF-GAN with the counts of K1/K2 set to 0 just before and read
+     just after (both must launch), then the five baselines; each
+     scored by ``evaluate_trainer`` (accuracy, F1, FPR of a CNN trained
+     on 600 generated images against real per-domain test sets; dataset
+     score and FID from a per-domain CNN trained on real images), every
+     metric finite. A CNN trained on the card on real gratings reaches
+     accuracy > 0.6 and scores real images above noise; FedGAN, MD-GAN
+     and Fed-Split-GAN train one epoch on the card and on the CPU from
+     one state (parameters within 2 lr times Adam's largest steps) and
+     the CNN trained on both from one ``params=`` gives logits within
+     1e-4 of the largest; one FedGAN step at 8 clients is profiled
+     (device busy share). Prints the ``quality`` line;
   5. GAN split serving: ``repro_torch.launch.serve_split.main --mode gan``
      at full width on both profile mixes (24 requests each); the images
      are finite, in the tanh range and equal each client's monolithic
@@ -103,8 +119,11 @@ Phases (any failure exits non-zero and prints no result):
   9. prints a JSON line with the slice's times, the ``population``
      line, one with the serving times (``serve``), the ``recut`` line
      (the search, the 8-client re-cut and churn, the population's churn
-     and its stage-1 search seconds), one with the kernels (K1 and K2
-     with their population shapes, launches and the re-cut run's
+     and its stage-1 search seconds), the ``quality`` line (per
+     algorithm: training and evaluation seconds, seconds per step,
+     epochs, steps and the per-domain metrics; the cuts in
+     ``reduced``), one with the kernels (K1 and K2 with their
+     population shapes, launches and the re-cut and quality runs'
      launches), then the result line.
 
 Float32 products and convolutions run in full float32 (TF32 off).
@@ -1612,6 +1631,179 @@ def time_attention(gen, lm_cfg, lm_batch: int, lm_prompt: int,
     return out
 
 
+def adam_bound(steps: int, b1: float, b2: float = 0.999) -> float:
+    """Sum over t <= steps of the largest step Adam can take at step t in
+    units of lr, sqrt(sum_i a_i^2 / u_i) over the bias-corrected weights
+    a_i of the first moment and u_i of the second (1 at t = 1; 1.054 at
+    t = 2 with b1 = 0.5). A gradient that is zero up to rounding (a conv
+    bias before BatchNorm) can take either sign on two devices, so two
+    runs from one state drift apart by up to 2 lr times this sum."""
+    import numpy as np
+    total = 0.0
+    for t in range(1, steps + 1):
+        a = np.array([(1 - b1) * b1 ** (t - i) for i in range(1, t + 1)])
+        u = np.array([(1 - b2) * b2 ** (t - i) for i in range(1, t + 1)])
+        a, u = a / (1 - b1 ** t), u / (1 - b2 ** t)
+        total += float(np.sqrt((a ** 2 / u).sum()))
+    return total
+
+
+def check_metrics_pipeline(device: str = "cuda") -> dict:
+    """The reference's ``test_metrics_pipeline_sane`` on the card: a
+    classifier trained on real gratings scores > 0.6 on a held-out set,
+    and its dataset score of real images beats that of uniform noise."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import make_class_balanced
+    from repro_torch.metrics import dataset_score, evaluate
+    from repro_torch.models.classifier import (predict, predict_proba,
+                                               train_classifier)
+    imgs, labs = make_class_balanced("gratings", 40, seed=0)
+    test_i, test_l = make_class_balanced("gratings", 15, seed=99)
+    params = train_classifier(torch.Generator().manual_seed(0), imgs, labs,
+                              epochs=5, device=device)
+    acc = evaluate(test_l, predict(params, test_i)).accuracy
+    score_real = dataset_score(predict_proba(params, test_i))
+    noise = np.random.default_rng(0).uniform(-1, 1, test_i.shape
+                                              ).astype(np.float32)
+    score_noise = dataset_score(predict_proba(params, noise))
+    if not acc > 0.6:
+        raise AssertionError(f"classifier on real gratings: accuracy {acc}")
+    if not score_real > score_noise:
+        raise AssertionError(f"dataset score of real images {score_real} "
+                             f"<= that of noise {score_noise}")
+    return {"accuracy": acc, "score_real": score_real,
+            "score_noise": score_noise}
+
+
+QUALITY_CPU_ATTRS = {"fedgan": ("g_params", "d_params"),
+                     "mdgan": ("g_server", "d_params"),
+                     "fed_split_gan": ("g_server", "d_heads", "d_tail")}
+
+
+def check_quality_cpu_agreement(device: str = "cuda") -> dict:
+    """FedGAN, MD-GAN and Fed-Split-GAN train one epoch (3 clients, batch
+    4, 2 steps, a federation) on the card and on the CPU from one state
+    and one seed's numpy draws: parameters agree to 2 lr times
+    ``adam_bound``. The classifier trained on both from one ``params=``
+    gives logits within 1e-4 of the largest."""
+    import numpy as np
+    import torch
+    from repro_torch.baselines import ALL_BASELINES, BaselineConfig
+    from repro_torch.data.partition import build_scenario
+    from repro_torch.data.synthetic import make_class_balanced
+    from repro_torch.models.classifier import (cnn_apply, init_cnn,
+                                               train_classifier)
+    from repro_torch.tree import tree_items, tree_map
+    clients = build_scenario("2dom_iid", num_clients=4, base_size=16,
+                             seed=0)[:3]
+    cfg = BaselineConfig(batch=4, steps_per_epoch=2, federate_every=1,
+                         seed=0)
+    tol = 2 * cfg.lr * adam_bound(2, cfg.adam_b1)
+    out = {"tol": tol}
+    for name, attrs in QUALITY_CPU_ATTRS.items():
+        cpu = ALL_BASELINES[name](clients, cfg, device="cpu")
+        card = ALL_BASELINES[name](clients, cfg, device=device)
+        for a in attrs:
+            setattr(card, a, tree_map(lambda x: x.to(card.device),
+                                      getattr(cpu, a)))
+        m_cpu, m_card = cpu.train_epoch(), card.train_epoch()
+        worst = max(float((x - y.cpu()).abs().max())
+                    for a in attrs
+                    for (_, x), (_, y) in zip(tree_items(getattr(cpu, a)),
+                                              tree_items(getattr(card, a))))
+        if not worst <= tol:
+            raise AssertionError(f"{name}: CPU vs card parameters differ by "
+                                 f"{worst} > {tol}")
+        out[name] = {"max_abs_diff": worst, "loss_cpu": m_cpu,
+                     "loss_card": m_card}
+    imgs, labs = make_class_balanced("gratings", 39, seed=0)
+    start = init_cnn(torch.Generator().manual_seed(0), device="cpu")
+    nets = {dev: train_classifier(None, imgs, labs, epochs=1, params=tree_map(
+        lambda x: x.to(dev), start)) for dev in ("cpu", device)}
+    test_i = torch.as_tensor(make_class_balanced("gratings", 3, seed=99)[0])
+    with torch.no_grad():
+        logits = {dev: cnn_apply(p, test_i.to(dev)).cpu()
+                  for dev, p in nets.items()}
+    err = float((logits["cpu"] - logits[device]).abs().max()
+                / logits["cpu"].abs().max())
+    if not err <= 1e-4:
+        raise AssertionError(f"classifier CPU vs card logits differ by "
+                             f"{err} of the largest")
+    out["classifier_logits_rel_err"] = err
+    return out
+
+
+QUALITY_SCENARIO = "2dom_noniid"
+QUALITY_CLIENTS, QUALITY_BASE_SIZE, QUALITY_EPOCHS = 8, 128, 6
+
+
+def run_quality(device: str = "cuda") -> dict:
+    """The quality phase (docstring, 4c): HuSCF-GAN with K1/K2's counts
+    set to 0 just before and read just after, then the five baselines,
+    each scored by ``launch.quality.evaluate_trainer``; every metric
+    finite; the metrics pipeline on real data; card against CPU; one
+    profiled FedGAN step at 8 clients."""
+    import numpy as np
+    import torch
+    from repro_torch.baselines import ALL_BASELINES, BaselineConfig
+    from repro_torch.baselines.fedgan import FedGANTrainer
+    from repro_torch.data.partition import build_scenario
+    from repro_torch.kernels import kmeans_assign as km
+    from repro_torch.kernels import weighted_agg as wa
+    from repro_torch.launch.quality import run_scenario
+    t_phase = time.perf_counter()
+    kw = dict(num_clients=QUALITY_CLIENTS, base_size=QUALITY_BASE_SIZE,
+              epochs=QUALITY_EPOCHS, batch=16, seed=0, device=device)
+    wa.launches = 0
+    km.launches = 0
+    results = run_scenario(QUALITY_SCENARIO, algos=("huscf",), **kw)
+    launches = {"clustered_agg": wa.launches, "kmeans_assign": km.launches}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched in the "
+                                 "quality phase's HuSCF-GAN run")
+    results.update(run_scenario(QUALITY_SCENARIO,
+                                algos=tuple(sorted(ALL_BASELINES)), **kw))
+    for algo, r in results.items():
+        for dom, m in r["metrics"].items():
+            bad = [k for k in ("accuracy", "f1", "fpr", "score", "fid")
+                   if not np.isfinite(m[k])]
+            if bad:
+                raise AssertionError(f"{algo}/{dom}: metrics {bad} are not "
+                                     f"finite: {m}")
+    pipeline = check_metrics_pipeline(device)
+    cpu_agreement = check_quality_cpu_agreement(device)
+    clients = build_scenario(QUALITY_SCENARIO, num_clients=QUALITY_CLIENTS,
+                             base_size=QUALITY_BASE_SIZE, seed=0)
+    fed = FedGANTrainer(clients, BaselineConfig(batch=16, federate_every=2,
+                                                seed=0), device=device)
+    fed.train_steps(1)
+    profile = device_profile(lambda: fed.train_steps(1), top_n=4)
+    for algo, r in results.items():
+        log(f"quality {algo}: train {r['train_s']:.2f}s ({r['steps']} steps, "
+            f"{r['s_per_step'] * 1e3:.1f} ms/step), eval {r['eval_s']:.2f}s; "
+            + "; ".join(f"{d} acc {m['accuracy']:.3f} fid {m['fid']:.1f}"
+                        for d, m in r["metrics"].items()))
+    return {"scenario": QUALITY_SCENARIO, "clients": QUALITY_CLIENTS,
+            "base_size": QUALITY_BASE_SIZE, "batch": 16,
+            "epochs": QUALITY_EPOCHS, "federate_every": 2,
+            "reduced": [f"clients: {QUALITY_CLIENTS} (the paper's "
+                        "scenarios: 100)",
+                        f"base_size: {QUALITY_BASE_SIZE} images per client "
+                        "(the paper's: 600)",
+                        f"epochs: {QUALITY_EPOCHS} of a short run (the "
+                        "paper trains to convergence)"],
+            "algos": {algo: {k: r[k] for k in ("train_s", "s_per_step",
+                                               "epochs", "steps", "eval_s",
+                                               "metrics")}
+                      for algo, r in results.items()},
+            "huscf_launches": launches,
+            "metrics_pipeline": pipeline, "cpu_agreement": cpu_agreement,
+            "fedgan_step_profile": profile,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def time_slice(tr) -> dict:
     """Wall time of one epoch's training steps and of one clustered
     federation round, each ending in a device synchronize."""
@@ -1746,10 +1938,12 @@ def main() -> int:
     population = run_population(train_main)
     population["phase_s"] = time.perf_counter() - t0
     pop_churn = population.pop("churn")
+    quality = run_quality()
     kernels = check_kernels(tr)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["recut_launches"] = recut_slice["launches"][k["name"]]
+        k["quality_launches"] = quality["huscf_launches"][k["name"]]
     kernels[0]["s1"]["launches"] = legacy["k1_launches"]
     gen = torch.Generator(device="cuda").manual_seed(1)
     pop_k = time_population_kernels(gen, population["k1_D"]["G"],
@@ -1799,6 +1993,7 @@ def main() -> int:
         "population_churn": pop_churn,
         "population_stage1_ga_s": population["ga_s"],
         "phase_s": recut_s}}), flush=True)
+    print(json.dumps({"quality": quality}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

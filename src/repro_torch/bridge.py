@@ -15,6 +15,15 @@ the parameters they belong to.
 that form back. The GAN serving engine's state has the trainer's layout
 and converts the same way.
 
+The baselines' state converts the same way: their per-client Adam
+(the reference's vmapped ``opt_init``) has a ``[K]`` step of equal
+entries, which becomes the port's one int. MD-GAN's and Fed-Split-GAN's
+single server networks have no client axis in the reference and a K = 1
+axis in the port (``single_from_numpy`` / ``single_to_numpy``). The
+evaluation CNN's conv kernels sit at ``c1``/``c2``, not under a
+``conv`` key, so they have their own pair (``classifier_from_numpy`` /
+``classifier_to_numpy``).
+
 ``split_lm_from_numpy`` takes the split LM's parameters
 (``{"embed", "blocks": [...], "norm_f"}``), whose layouts the port keeps.
 """
@@ -63,6 +72,17 @@ def _is_adam(x) -> bool:
     return all(hasattr(x, f) for f in ("step", "mu", "nu"))
 
 
+def _step_from_numpy(step) -> int:
+    """Adam's step: a scalar, or the ``[K]`` vector of a vmapped
+    optimiser (the baselines' per-client Adam), whose entries are equal
+    because every client steps together."""
+    a = np.asarray(step).reshape(-1)
+    if a.size == 0 or (a != a[0]).any():
+        raise ValueError(f"per-client Adam steps differ: {a}; the port "
+                         "keeps one step for the stacked tree")
+    return int(a[0])
+
+
 def state_from_numpy(tree: Any, device="cuda", path: Tuple[str, ...] = ()
                      ) -> Any:
     """Reference-layout numpy state -> port state on ``device``."""
@@ -71,7 +91,8 @@ def state_from_numpy(tree: Any, device="cuda", path: Tuple[str, ...] = ()
         return {k: state_from_numpy(v, device, path + (k,))
                 for k, v in tree.items()}
     if _is_adam(tree):
-        return AdamState(int(tree.step), state_from_numpy(tree.mu, device),
+        return AdamState(_step_from_numpy(tree.step),
+                         state_from_numpy(tree.mu, device),
                          state_from_numpy(tree.nu, device))
     a = np.asarray(tree)
     if a.ndim == 0 and np.issubdtype(a.dtype, np.integer):
@@ -101,5 +122,57 @@ def state_to_numpy(tree: Any, path: Tuple[str, ...] = ()) -> Any:
                          state_to_numpy(tree.nu))
     if isinstance(tree, int):
         return np.int32(tree)
-    a = tree.detach().cpu().numpy()
+    return leaf_to_numpy(path, tree)
+
+
+def leaf_to_numpy(path: Tuple[str, ...], x: torch.Tensor) -> np.ndarray:
+    """One parameter leaf of a GAN tree at ``path`` -> the reference's
+    layout, as numpy."""
+    a = x.detach().cpu().numpy()
     return np.ascontiguousarray(_port_to_hwio(a, _kind(path)))
+
+
+def _map_arrays(fn, tree: Any) -> Any:
+    """``fn`` on every array leaf of a dict / AdamState tree; Adam's step
+    passes through."""
+    if isinstance(tree, dict):
+        return {k: _map_arrays(fn, v) for k, v in tree.items()}
+    if _is_adam(tree):
+        return type(tree)(tree.step, _map_arrays(fn, tree.mu),
+                          _map_arrays(fn, tree.nu))
+    return fn(tree)
+
+
+def single_from_numpy(tree: Any, device="cuda") -> Any:
+    """One network (or its Adam state) without a client axis, as the
+    reference keeps MD-GAN's and Fed-Split-GAN's server G and D tail ->
+    the port's K = 1 stacked form on ``device``."""
+    return state_from_numpy(_map_arrays(lambda a: np.asarray(a)[None], tree),
+                            device)
+
+
+def single_to_numpy(tree: Any) -> Any:
+    """Inverse of ``single_from_numpy``: drops the K = 1 axis."""
+    return _map_arrays(lambda a: a[0], state_to_numpy(tree))
+
+
+def _classifier_kind(name: str, leaf: str) -> str:
+    return "conv" if name in ("c1", "c2") and leaf == "w" else "plain"
+
+
+def classifier_from_numpy(params: Any, device="cuda") -> Any:
+    """The evaluation CNN's reference parameters (``{"c1", "c2", "fc1",
+    "fc2"}``, numpy leaves) -> the port's on ``device``: the conv kernels
+    ``c1``/``c2`` go from HWIO to OIHW, the dense layers keep their
+    ``[in, out]`` layout."""
+    device = resolve_device(device)
+    return {name: {leaf: torch.tensor(np.ascontiguousarray(_hwio_to_port(
+        np.asarray(a), _classifier_kind(name, leaf))), device=device)
+        for leaf, a in layer.items()} for name, layer in params.items()}
+
+
+def classifier_to_numpy(params: Any) -> Any:
+    """Inverse of ``classifier_from_numpy``."""
+    return {name: {leaf: np.ascontiguousarray(_port_to_hwio(
+        x.detach().cpu().numpy(), _classifier_kind(name, leaf)))
+        for leaf, x in layer.items()} for name, layer in params.items()}

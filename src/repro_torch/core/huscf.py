@@ -127,6 +127,21 @@ def _is_stat(path) -> bool:
     return path[-1] in ("mean", "var")
 
 
+def value_and_grad(loss_fn: Callable, params: Dict):
+    """(loss, aux, grads) of ``loss_fn(params) -> (loss, aux)`` with
+    respect to every learnable leaf; BatchNorm statistics get zero
+    gradients, as they do under ``jax.grad``."""
+    items = list(tree_items(params))
+    learn = {p: x.detach().requires_grad_(True)
+             for p, x in items if not _is_stat(p)}
+    loss, aux = loss_fn(tree_from_items(
+        (p, learn.get(p, x)) for p, x in items))
+    gmap = dict(zip(learn, torch.autograd.grad(loss, list(learn.values()))))
+    grads = tree_from_items(
+        (p, gmap[p] if p in gmap else torch.zeros_like(x)) for p, x in items)
+    return loss.detach(), aux, grads
+
+
 class HuSCFTrainer:
     """End-to-end HuSCF-GAN over a client population.
 
@@ -249,22 +264,6 @@ class HuSCFTrainer:
                                        target) * g.size
         return tot / total
 
-    def _grads(self, loss_fn: Callable, params: Dict):
-        """(loss, aux, grads) of ``loss_fn(params) -> (loss, aux)`` with
-        respect to every learnable leaf; BatchNorm statistics get zero
-        gradients, as they do under ``jax.grad``."""
-        items = list(tree_items(params))
-        learn = {p: x.detach().requires_grad_(True)
-                 for p, x in items if not _is_stat(p)}
-        loss, aux = loss_fn(tree_from_items(
-            (p, learn.get(p, x)) for p, x in items))
-        gmap = dict(zip(learn, torch.autograd.grad(loss,
-                                                   list(learn.values()))))
-        grads = tree_from_items(
-            (p, gmap[p] if p in gmap else torch.zeros_like(x))
-            for p, x in items)
-        return loss.detach(), aux, grads
-
     def _step(self, batch: Dict[str, Dict[str, torch.Tensor]]):
         groups = self.groups
         st = self.state
@@ -290,7 +289,7 @@ class HuSCFTrainer:
                     + self._mean_client_loss(lf_, 0.0))
             return loss, ({"client": ncr, "server": nsr}, mids)
 
-        loss_d, (d_bn, mids), grads_d = self._grads(d_loss, d_params)
+        loss_d, (d_bn, mids), grads_d = value_and_grad(d_loss, d_params)
         opt_d, d_new = self._opt_update(st["opt_d"], grads_d, d_params)
         # keep BatchNorm running stats from the real-data pass
         d_new = merge_bn(d_new, d_bn)
@@ -306,7 +305,7 @@ class HuSCFTrainer:
             return (self._mean_client_loss(logits, 1.0),
                     {"client": ncg, "server": nsg})
 
-        loss_g, g_bn, grads_g = self._grads(g_loss, g_params)
+        loss_g, g_bn, grads_g = value_and_grad(g_loss, g_params)
         opt_g, g_new = self._opt_update(st["opt_g"], grads_g, g_params)
         g_new = merge_bn(g_new, g_bn)
 

@@ -1,5 +1,6 @@
 """Analytic latency model — paper §4.2, Eq. (3)-(10), on the host in
-float64 (port of ``repro.core.latency``, the parts the trainer uses).
+float64 (port of ``repro.core.latency``: the HuSCF model the trainer
+uses and the five baselines' models of paper §6.2).
 
 Indexing convention (half-open segments over n layers):
     head  = layers [0, l_H)      l_H >= 1
@@ -140,3 +141,78 @@ def huscf_iteration_latency(cuts: Sequence[Cut],
     gf, gb = _one_net_latency(GEN_LAYER_COSTS, g_cuts, devices, server, batch)
     df, db = _one_net_latency(DISC_LAYER_COSTS, d_cuts, devices, server, batch)
     return gf + gb + 3.0 * (df + db)
+
+
+# ---------------------------------------------------------------------------
+# baseline latency models (paper §6.2 comparisons)
+# ---------------------------------------------------------------------------
+
+def _full_flops(costs: Sequence[LayerCost], backward: bool) -> float:
+    return _segment_flops(costs, 0, len(costs), backward)
+
+
+def fedgan_iteration_latency(devices: Sequence[DeviceProfile],
+                             batch: int = 64) -> float:
+    """Full G+D on every client; slowest dominates. D trained 3x (Eq. 10 logic)."""
+    g = _full_flops(GEN_LAYER_COSTS, False) + _full_flops(GEN_LAYER_COSTS, True)
+    d = _full_flops(DISC_LAYER_COSTS, False) + _full_flops(DISC_LAYER_COSTS, True)
+    per_sample = g + 3.0 * d
+    return max(batch * per_sample / dv.flops_per_s for dv in devices)
+
+
+def hflgan_iteration_latency(devices: Sequence[DeviceProfile],
+                             batch: int = 64) -> float:
+    """HFL-GAN trains two generators per client (paper §6.2)."""
+    g = _full_flops(GEN_LAYER_COSTS, False) + _full_flops(GEN_LAYER_COSTS, True)
+    d = _full_flops(DISC_LAYER_COSTS, False) + _full_flops(DISC_LAYER_COSTS, True)
+    per_sample = 2.0 * g + 3.0 * d
+    return max(batch * per_sample / dv.flops_per_s for dv in devices)
+
+
+def pflgan_iteration_latency(devices: Sequence[DeviceProfile],
+                             batch: int = 64) -> float:
+    """PFL-GAN trains the full cGAN locally (plus server-side refinement
+    that is off the client critical path); client-side dominates."""
+    return fedgan_iteration_latency(devices, batch) * 1.07  # + local cGAN refresh overhead
+
+
+def mdgan_iteration_latency(devices: Sequence[DeviceProfile],
+                            server: DeviceProfile = PAPER_SERVER,
+                            batch: int = 64) -> float:
+    """MD-GAN: G on server; clients train D only (3 passes) and receive
+    synthetic batches (2 downloads: X_d and X_g per iteration)."""
+    d = _full_flops(DISC_LAYER_COSTS, False) + _full_flops(DISC_LAYER_COSTS, True)
+    img_bytes = 28 * 28 * 4.0
+    K = len(devices)
+    g_fwd = batch * _full_flops(GEN_LAYER_COSTS, False) / server.flops_per_s
+    # server generates for all clients sequentially, then slowest client D step
+    client = max(3.0 * batch * d / dv.flops_per_s
+                 + 2.0 * batch * img_bytes / dv.rate_bytes_per_s
+                 for dv in devices)
+    g_bwd = batch * _full_flops(GEN_LAYER_COSTS, True) / server.flops_per_s * K
+    return g_fwd * K + client + g_bwd
+
+
+def fedsplitgan_iteration_latency(devices: Sequence[DeviceProfile],
+                                  server: DeviceProfile = PAPER_SERVER,
+                                  batch: int = 64) -> float:
+    """Federated Split GANs: G on server, D split per device capability
+    (single cut, D-head on client). We model the best single-cut split."""
+    n = len(DISC_LAYER_COSTS)
+    best = None
+    for cut in range(1, n):
+        total_client = []
+        for dv in devices:
+            head_f = batch * _segment_flops(DISC_LAYER_COSTS, 0, cut, False) / dv.flops_per_s
+            head_b = batch * _segment_flops(DISC_LAYER_COSTS, 0, cut, True) / dv.flops_per_s
+            up = batch * DISC_LAYER_COSTS[cut - 1].act_bytes / dv.rate_bytes_per_s
+            total_client.append(3.0 * (head_f + head_b + 2.0 * up))
+        srv_d = 3.0 * batch * (_segment_flops(DISC_LAYER_COSTS, cut, n, False)
+                               + _segment_flops(DISC_LAYER_COSTS, cut, n, True)) / server.flops_per_s
+        srv_g = batch * (_full_flops(GEN_LAYER_COSTS, False)
+                         + _full_flops(GEN_LAYER_COSTS, True)) / server.flops_per_s
+        # synthetic images shipped to clients
+        ship = batch * 28 * 28 * 4.0 / min(dv.rate_bytes_per_s for dv in devices)
+        t = max(total_client) + srv_d * len(devices) + srv_g + ship
+        best = t if best is None else min(best, t)
+    return best

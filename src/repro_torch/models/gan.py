@@ -25,7 +25,7 @@ layers run with ``K = 1`` (see ``core.segments``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple
+from typing import Callable, Dict, List, NamedTuple, Sequence
 
 import torch
 
@@ -156,6 +156,42 @@ NET_LAYER_DEFS = {"G": GEN_LAYER_DEFS, "D": DISC_LAYER_DEFS}
 
 
 # ---------------------------------------------------------------------------
+# whole networks: ``n`` stacked copies (a single network is n = 1)
+# ---------------------------------------------------------------------------
+
+def init_generator(gen: torch.Generator, device, n: int = 1) -> List[Dict]:
+    return [d.init(n, gen, device) for d in GEN_LAYER_DEFS]
+
+
+def init_discriminator(gen: torch.Generator, device, n: int = 1
+                       ) -> List[Dict]:
+    return [d.init(n, gen, device) for d in DISC_LAYER_DEFS]
+
+
+def run_layers(defs: Sequence[LayerDef], params: List[Dict], x, *,
+               start: int, stop: int, train: bool):
+    """Run layers [start, stop); returns (activations, new_params_list)."""
+    new_params = list(params)
+    for i in range(start, stop):
+        x, new_params[i] = defs[i].apply(params[i], x, train)
+    return x, new_params
+
+
+def generator_forward(params: List[Dict], z: torch.Tensor, y: torch.Tensor,
+                      *, train: bool):
+    """z [K, b, Z_DIM], y [K, b] -> images [K, b, 28, 28, 1]."""
+    return run_layers(GEN_LAYER_DEFS, params, (z, y), start=0,
+                      stop=GEN_LAYERS, train=train)
+
+
+def discriminator_forward(params: List[Dict], img: torch.Tensor,
+                          y: torch.Tensor, *, train: bool):
+    """img [K, b, 28, 28, 1], y [K, b] -> logits [K, b]."""
+    return run_layers(DISC_LAYER_DEFS, params, (img, y), start=0,
+                      stop=DISC_LAYERS, train=train)
+
+
+# ---------------------------------------------------------------------------
 # per-layer cost model (FLOPs forward, activation bytes out) for Eq. 3-6
 # ---------------------------------------------------------------------------
 
@@ -193,6 +229,10 @@ DISC_LAYER_COSTS: List[LayerCost] = [
 NET_LAYER_COSTS = {"G": GEN_LAYER_COSTS, "D": DISC_LAYER_COSTS}
 
 
+def gan_layer_costs():
+    return GEN_LAYER_COSTS, DISC_LAYER_COSTS
+
+
 # ---------------------------------------------------------------------------
 # loss (non-saturating BCE on logits)
 # ---------------------------------------------------------------------------
@@ -200,3 +240,12 @@ NET_LAYER_COSTS = {"G": GEN_LAYER_COSTS, "D": DISC_LAYER_COSTS}
 def bce_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
     return torch.mean(torch.clamp_min(logits, 0) - logits * target
                       + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def d_loss_fn(d_logits_real: torch.Tensor, d_logits_fake: torch.Tensor
+              ) -> torch.Tensor:
+    return bce_logits(d_logits_real, 1.0) + bce_logits(d_logits_fake, 0.0)
+
+
+def g_loss_fn(d_logits_fake: torch.Tensor) -> torch.Tensor:
+    return bce_logits(d_logits_fake, 1.0)

@@ -1,5 +1,6 @@
-"""Layers of the Table-3 cGAN and of the split LM in PyTorch (port of
-``repro.models.nn``, the subset those two use).
+"""Layers of the Table-3 cGAN, the evaluation CNN and the split LM in
+PyTorch, and the tree helpers the baselines use (port of
+``repro.models.nn``, the subset those use).
 
 Parameters are plain nested dicts of tensors. Every parameter carries a
 leading copy axis ``K`` and every activation a leading ``[K, b]`` pair:
@@ -28,6 +29,8 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, torch.Tensor]
 
@@ -215,3 +218,37 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     """The tanh approximation, which ``jax.nn.gelu`` takes by default
     (PyTorch's default is the exact erf form)."""
     return F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# tree helpers over nested dicts of tensors (``repro_torch.tree`` order)
+# ---------------------------------------------------------------------------
+
+def tree_cast(tree, dtype):
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    tree)
+
+
+def tree_zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_scale(tree, s):
+    return tree_map(lambda x: x * s, tree)
+
+
+def tree_weighted_sum(stacked, weights: torch.Tensor):
+    """stacked: tree with leading client axis K; weights: [K]. Sums in
+    float32 and casts back to each leaf's dtype."""
+    w = weights.to(torch.float32)
+    return tree_map(lambda x: torch.einsum("k,k...->...", w, x.float())
+                    .to(x.dtype), stacked)
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(torch.stack([torch.sum(torch.square(x.float()))
+                                   for x in tree_leaves(tree)]).sum())

@@ -1,4 +1,5 @@
-"""Adam over nested dicts of tensors (port of ``repro.optim.adam``).
+"""Adam and SGD over nested dicts of tensors (port of
+``repro.optim.adam`` and ``repro.optim.sgd``).
 
 ``update(state, grads, params) -> (new_state, new_params)`` is applied
 to the whole tree, BatchNorm running statistics included: their
@@ -42,5 +43,36 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
 
         new_params = tree_map(upd, params, mu, nu)
         return AdamState(step, mu, nu), new_params
+
+    return init, update
+
+
+class SGDState(NamedTuple):
+    step: int
+    momentum: Any
+
+
+def sgd(lr, momentum: float = 0.0):
+    """SGD with optional heavy-ball momentum; ``lr`` is a float or a
+    callable step -> lr, as in the reference."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params) -> SGDState:
+        return SGDState(0, tree_map(
+            lambda p: torch.zeros_like(p, dtype=torch.float32), params))
+
+    def update(state: SGDState, grads, params):
+        step = state.step + 1
+        lr_t = lr_fn(step)
+        if momentum:
+            mom = tree_map(lambda m, g: momentum * m + g.float(),
+                           state.momentum, grads)
+            eff = mom
+        else:
+            mom = state.momentum
+            eff = tree_map(lambda g: g.float(), grads)
+        new_params = tree_map(lambda p, g: (p.float() - lr_t * g).to(p.dtype),
+                              params, eff)
+        return SGDState(step, mom), new_params
 
     return init, update
