@@ -77,6 +77,28 @@ Phases (any failure exits non-zero and prints no result):
      the CNN trained on both from one ``params=`` gives logits within
      1e-4 of the largest; one FedGAN step at 8 clients is profiled
      (device busy share). Prints the ``quality`` line;
+  4d. the LM family (``run_lm``): granite-3-2b at its published config
+     (40 layers, d 2048, bf16) through ``launch.train.main`` (5 steps,
+     batch 16, seq 128; losses and parameters finite, peak device
+     memory; one more step timed and one profiled: busy share, the
+     kernels that take the time) and ``launch.serve.main`` (batch 4,
+     prompt 64, gen 16; prefill and decode tok/s); the logits of 4
+     decode steps against a prefill over the same tokens (5e-2 of the
+     largest, bf16); the decode tail profiled (ms and launches per
+     token). The timed step and every arch's decode loop run under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host
+     synchronisation). Every other arch of ``list_archs()`` at full width with its
+     depth cut to one super-block (granite-moe-1b-a400m and whisper-tiny
+     at full depth; each cut on a ``reduced`` list): one ``launch.train``
+     step at batch 2, seq 128 (command-r-plus-104b serves only: a
+     full-width layer with Adam does not fit the card) and a serve at
+     batch 2, prompt 32, gen 4. The split transformer
+     (``core.split_transformer``) on granite-3-2b at full width, 5
+     layers: 3 train steps and one federation round, then clients marked
+     with constants federate without crossing clusters. Every arch's
+     smoke config (float32) on the card against the CPU: forward logits,
+     prefill logits and cache, 2 decode steps (1e-4 of the largest). The
+     LM path runs none of K1-K4 (plain attention, as in the reference);
   5. GAN split serving: ``repro_torch.launch.serve_split.main --mode gan``
      at full width on both profile mixes (24 requests each); the images
      are finite, in the tanh range and equal each client's monolithic
@@ -122,7 +144,8 @@ Phases (any failure exits non-zero and prints no result):
      and its stage-1 search seconds), the ``quality`` line (per
      algorithm: training and evaluation seconds, seconds per step,
      epochs, steps and the per-domain metrics; the cuts in
-     ``reduced``), one with the kernels (K1 and K2 with their
+     ``reduced``), the ``lm`` line (the card's name and power limit, then
+     the phase 4d numbers), one with the kernels (K1 and K2 with their
      population shapes, launches and the re-cut and quality runs'
      launches), then the result line.
 
@@ -130,6 +153,7 @@ Float32 products and convolutions run in full float32 (TF32 off).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -1804,6 +1828,391 @@ def run_quality(device: str = "cuda") -> dict:
             "phase_s": time.perf_counter() - t_phase}
 
 
+# --- the LM family (phase 4d) ------------------------------------------------
+
+LM_ARCH = "granite-3-2b"
+LM_TRAIN = dict(steps=5, batch=16, seq=128)
+LM_SERVE = dict(batch=4, prompt=64, gen=16)
+# every other arch: one step at batch 2, seq 128, and a short serve
+LM_OTHER_TRAIN = dict(batch=2, seq=128)
+LM_OTHER_SERVE = dict(batch=2, prompt=32, gen=4)
+LM_FULL_DEPTH = ("granite-moe-1b-a400m", "whisper-tiny")
+# command-r-plus-104b: one full-width layer holds 4.7 B parameters (the
+# 256000 x 12288 embedding alone 3.1 B); bf16 weights and gradients plus
+# float32 Adam moments and the update's float32 temporaries come to
+# ~76 GB before activations, which does not fit the 80 GB card
+LM_SERVE_ONLY = ("command-r-plus-104b",)
+# decode vs prefill in bf16: both paths compute the same function, but
+# their products reduce in other shapes (an [S, d] GEMM and chunked
+# attention against a [1, d] GEMM and full-softmax decode attention), so
+# each of the ~6 bf16 rounding points per layer may round an element the
+# other way (2^-9 relative); over 40 layers such flips add up like a
+# random walk, ~sqrt(240) * 2^-9 = 3 % of an activation's size. The
+# float32 logits are held to 5 % of the largest one.
+LM_DECODE_TOL = 5e-2
+LM_DECODE_CHECKS = 4            # decode steps held against a prefill
+# the card against the CPU on the smoke configs (float32, TF32 off): the
+# CPU parity tests' tolerance, 1e-4 of the largest magnitude
+LM_CARD_CPU_TOL = 1e-4
+
+
+def _rel_err(got, want) -> float:
+    import torch
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()
+                 / torch.clamp(want.abs().max(), min=1e-30))
+
+
+def _lm_inputs(cfg, batch: int, seq: int, device, seed: int = 0):
+    """Seeded tokens plus a VLM's patch embeddings or an encoder's frames."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (batch, seq)),
+                        dtype=torch.int32, device=device)
+    extra = {}
+    name = ("enc_frames" if cfg.is_encoder_decoder else
+            "prefix_embeds" if cfg.frontend == "vision" else None)
+    if name:
+        extra[name] = torch.tensor(rng.normal(
+            0, 1, (batch, cfg.num_prefix_embeds, cfg.d_model)),
+            dtype=torch.float32, device=device)
+    return toks, extra
+
+
+def without_sync(fn):
+    """``fn()`` with every host synchronisation an error (torch's sync
+    debug mode), as phase 3c runs the search; returns its result."""
+    import torch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _free_cuda() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_granite_train(train_main, device: str) -> dict:
+    """granite-3-2b at its published config through ``launch.train``:
+    5 steps at batch 16, seq 128; then one more step timed (with no
+    host synchronisation: gradient clipping reads nothing back) and one
+    profiled."""
+    import torch
+    from repro_torch.data.tokens import lm_batches
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.nn import tree_size
+    from repro_torch.optim.optimizers import adam
+    from repro_torch.optim.schedules import warmup_cosine
+    a = LM_TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, opt_state, losses = train_main(
+        ["--arch", LM_ARCH, "--steps", str(a["steps"]), "--batch",
+         str(a["batch"]), "--seq", str(a["seq"]), "--device", device])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses) or not all_finite(params):
+        raise AssertionError(f"{LM_ARCH} training: losses {losses} or "
+                             "parameters not finite")
+    step, _ = T.make_train_step(cfg, adam(warmup_cosine(3e-4, 10, 20),
+                                          grad_clip=1.0))
+    toks, labs = next(lm_batches(cfg.vocab, a["batch"], a["seq"], seed=1))
+    batch = lm_batch(cfg, toks, labs, a["steps"], device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt_state, m = without_sync(lambda: step(params, opt_state,
+                                                     batch))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    prof = device_profile(lambda: step(params, opt_state, batch), top_n=6)
+    n_params = tree_size(params)
+    del params, opt_state
+    _free_cuda()
+    log(f"LM {LM_ARCH} train: {a['steps']} steps in {train_s:.1f}s, losses "
+        f"{losses}, step {step_s:.3f}s, busy share "
+        f"{prof['busy_share']:.3f}, peak {peak / 2**30:.1f} GiB")
+    return {"arch": LM_ARCH, "params": n_params, **a, "losses": losses,
+            "train_s": train_s, "step_s": step_s, "peak_bytes": peak,
+            "tokens_per_s": a["batch"] * a["seq"] / step_s,
+            "step_profile": prof}
+
+
+def lm_granite_serve(serve_main, device: str) -> dict:
+    """granite-3-2b through ``launch.serve`` (batch 4, prompt 64, gen
+    16); decode logits against prefill logits over the same tokens;
+    the decode tail once with no host synchronisation, once profiled
+    (ms and launches per token)."""
+    import torch
+    from repro_torch.launch.serve import decode_tail
+    from repro_torch.models import transformer as T
+    a = LM_SERVE
+    res = serve_main(["--arch", LM_ARCH, "--batch", str(a["batch"]),
+                      "--prompt-len", str(a["prompt"]), "--gen",
+                      str(a["gen"]), "--device", device])
+    cfg, params, prompts = res["cfg"], res["params"], res["prompts"]
+    toks = torch.as_tensor(res["tokens"], device=prompts.device)
+    if toks.shape != (a["batch"], a["gen"]) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"served tokens {tuple(toks.shape)} out of "
+                             "shape or vocabulary")
+    _, cache = T.prefill(cfg, params, prompts, margin=a["gen"] + 16)
+    errs = []
+    for j in range(LM_DECODE_CHECKS):
+        dec, cache = T.decode_step(cfg, params, toks[:, j], cache)
+        pre, _ = T.prefill(cfg, params, torch.cat([prompts, toks[:, :j + 1]],
+                                                  1), margin=16)
+        errs.append(_rel_err(dec, pre))
+    if max(errs) > LM_DECODE_TOL:
+        raise AssertionError(f"decode vs prefill logits differ by {errs} "
+                             f"of the largest (tolerance {LM_DECODE_TOL})")
+    check_decode_without_sync(cfg, params, prompts, {}, a["gen"])
+    logits, cache = T.prefill(cfg, params, prompts, margin=a["gen"] + 16)
+    cur0 = torch.argmax(logits, -1).to(torch.int32)
+    prof = device_profile(lambda: decode_tail(cfg, params, cur0, cache,
+                                              a["gen"]), top_n=6)
+    n_dec = a["gen"] - 1
+    out = {"arch": LM_ARCH, **a,
+           "prefill_tok_per_s": res["prefill_tok_per_s"],
+           "decode_tok_per_s": res["decode_tok_per_s"],
+           "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+           "ms_per_token": prof["wall_s"] / n_dec * 1e3,
+           "launches_per_token": prof["kernels"] / n_dec,
+           "decode_busy_share": prof["busy_share"],
+           "decode_vs_prefill_rel_err": errs,
+           "decode_vs_prefill_tol": LM_DECODE_TOL, "decode_profile": prof}
+    del res, params, cache
+    _free_cuda()
+    log(f"LM {LM_ARCH} serve: prefill {out['prefill_tok_per_s']:.0f} tok/s, "
+        f"decode {out['decode_tok_per_s']:.0f} tok/s, "
+        f"{out['ms_per_token']:.2f} ms and {out['launches_per_token']:.0f} "
+        f"launches per token; decode vs prefill {max(errs):.3e}")
+    return out
+
+
+def check_decode_without_sync(cfg, params, prompts, inputs, gen: int
+                              ) -> None:
+    """A fresh prefill, then ``gen - 1`` greedy decode steps with every
+    host synchronisation an error: the decode loop reads nothing back
+    per token."""
+    import torch
+    from repro_torch.launch.serve import decode_tail
+    from repro_torch.models import transformer as T
+    logits, cache = T.prefill(cfg, params, prompts, margin=gen + 16,
+                              **inputs)
+    cur0 = torch.argmax(logits, -1).to(torch.int32)
+    torch.cuda.synchronize()
+    without_sync(lambda: decode_tail(cfg, params, cur0, cache, gen))
+    torch.cuda.synchronize()
+
+
+def lm_other_archs(train_main, serve_main, device: str) -> dict:
+    """Every other arch at full width, depth cut to one super-block
+    (granite-moe and whisper at full depth): one ``launch.train`` step
+    and one short ``launch.serve``, then its decode loop with no host
+    synchronisation; command-r-plus serves only."""
+    import torch
+    from repro_torch.configs import get_config, list_archs
+    out = {}
+    for arch in list_archs():
+        if arch == LM_ARCH:
+            continue
+        full = get_config(arch)
+        layers = (full.n_layers if arch in LM_FULL_DEPTH
+                  else len(full.block_pattern))
+        cut = ["--layers", str(layers)] if layers != full.n_layers else []
+        entry = {"layers": layers, "reduced": (
+            [f"n_layers: {full.n_layers} -> {layers} (one super-block)"]
+            if cut else [])}
+        if arch in LM_SERVE_ONLY:
+            entry["train"] = ("skipped: one full-width layer with Adam "
+                              "needs ~76 GB before activations, more than "
+                              "the card's 80 GB leaves")
+        else:
+            a = LM_OTHER_TRAIN
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _, params, _, losses = train_main(
+                ["--arch", arch, "--steps", "1", "--batch", str(a["batch"]),
+                 "--seq", str(a["seq"]), "--device", device] + cut)
+            torch.cuda.synchronize()
+            loss = float(losses[0])
+            if not math.isfinite(loss) or not all_finite(params):
+                raise AssertionError(f"{arch}: loss {loss} or parameters "
+                                     "not finite after a step")
+            entry.update(train_s=time.perf_counter() - t0, loss=loss,
+                         train_peak_bytes=torch.cuda.max_memory_allocated(),
+                         **{f"train_{k}": v for k, v in a.items()})
+            del params
+            _free_cuda()
+        a = LM_OTHER_SERVE
+        t0 = time.perf_counter()
+        res = serve_main(["--arch", arch, "--batch", str(a["batch"]),
+                          "--prompt-len", str(a["prompt"]), "--gen",
+                          str(a["gen"]), "--device", device] + cut)
+        toks = res["tokens"]
+        if toks.shape != (a["batch"], a["gen"]) or toks.min() < 0 or \
+                toks.max() >= full.vocab or \
+                not bool(torch.isfinite(res["prefill_logits"]).all()):
+            raise AssertionError(f"{arch}: served tokens or logits invalid")
+        check_decode_without_sync(res["cfg"], res["params"], res["prompts"],
+                                  res["inputs"], a["gen"])
+        entry.update(serve_s=time.perf_counter() - t0,
+                     prefill_tok_per_s=res["prefill_tok_per_s"],
+                     decode_tok_per_s=res["decode_tok_per_s"],
+                     **{f"serve_{k}": v for k, v in a.items()})
+        del res
+        _free_cuda()
+        log(f"LM {arch}: {entry}")
+        out[arch] = entry
+    return out
+
+
+def lm_split(device: str) -> dict:
+    """The split transformer on granite-3-2b at full width, 5 layers (the
+    least ``default_groups`` leaves a trunk of one super-block with): 3
+    ``make_split_train_step`` steps and one ``federate_split_lm`` round;
+    then clients marked with constants federate without crossing
+    clusters."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import split_transformer as ST
+    from repro_torch.tree import tree_leaves
+    full = get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=5)
+    groups = ST.default_groups(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = ST.init_split_lm(cfg, groups, gen, device)
+    step, opt_init = ST.make_split_train_step(cfg, groups, lr=1e-4)
+    opt = opt_init(params)
+    rng = np.random.default_rng(0)
+    batch = {k: {g.name: torch.tensor(rng.integers(
+        0, cfg.vocab, (g.n_clients, 2, 128)), device=device) for g in groups}
+        for k in ("tokens", "labels")}
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    steps_s = time.perf_counter() - t0
+    if not all(math.isfinite(x) for x in losses) or not all_finite(params):
+        raise AssertionError(f"split LM: losses {losses} or parameters not "
+                             "finite")
+    labels = np.array([0, 0, 1, 1])
+    weights = np.array([0.5, 0.5, 0.25, 0.75])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fed = ST.federate_split_lm(params, groups, weights, labels)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    if not all_finite(fed):
+        raise AssertionError("split LM federation: not finite")
+    marked = {"server": params["server"], "clients": {}}
+    for gi, g in enumerate(groups):
+        c = dict(params["clients"][g.name])
+        t = c["embed"]["table"]
+        marks = torch.arange(g.n_clients, device=device) + 10 * gi
+        c["embed"] = {"table": torch.zeros_like(t)
+                      + marks[:, None, None].to(t.dtype)}
+        marked["clients"][g.name] = c
+    out = ST.federate_split_lm(marked, groups, weights, labels)
+    want = {groups[0].name: 0.5, groups[1].name: 10.75}
+    for name, v in want.items():
+        t = out["clients"][name]["embed"]["table"]
+        if not bool((t == v).all()):
+            raise AssertionError(f"split LM federation mixed clusters: "
+                                 f"{name} tables are not all {v}")
+    for name in want:
+        heads = out["clients"][name]["head"]
+        if not all(bool((x[0] == x[1]).all()) for x in tree_leaves(heads)):
+            raise AssertionError(f"split LM federation: {name}'s head "
+                                 "blocks differ within one cluster")
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    del params, opt, fed, marked, out
+    _free_cuda()
+    log(f"LM split: losses {losses}, 3 steps {steps_s:.2f}s, round "
+        f"{round_s:.3f}s")
+    return {"arch": LM_ARCH, "layers": 5, "params": n_params,
+            "reduced": [f"n_layers: {full.n_layers} -> 5 (the least "
+                        "default_groups allows)"],
+            "groups": [dataclasses.astuple(g) for g in groups],
+            "batch": 2, "seq": 128, "losses": losses, "steps_s": steps_s,
+            "round_s": round_s, "cluster_isolation": True}
+
+
+def lm_card_vs_cpu(device: str) -> dict:
+    """Every arch's smoke config (float32) from one CPU initialisation:
+    forward logits, prefill logits and cache, and 2 decode steps on the
+    card against the CPU."""
+    import torch
+    from repro_torch.configs import get_smoke_config, list_archs
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_items, tree_map
+    out = {}
+    for arch in list_archs():
+        cfg = get_smoke_config(arch)
+        p_cpu = T.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+        p_dev = tree_map(lambda x: x.to(device), p_cpu)
+        seq = 12 if cfg.is_encoder_decoder else 24
+        toks, extra = _lm_inputs(cfg, 2, seq, "cpu")
+        extra_dev = {k: v.to(device) for k, v in extra.items()}
+        errs = {}
+        lc, _ = T.forward_train(cfg, p_cpu, toks, **extra)
+        ld, _ = T.forward_train(cfg, p_dev, toks.to(device), **extra_dev)
+        errs["forward"] = _rel_err(ld.detach(), lc.detach())
+        pc, cc = T.prefill(cfg, p_cpu, toks, margin=4, **extra)
+        pd, cd = T.prefill(cfg, p_dev, toks.to(device), margin=4,
+                           **extra_dev)
+        errs["prefill"] = _rel_err(pd, pc)
+
+        def cache_err(a, b):
+            return max(_rel_err(x, dict(tree_items(b))[path])
+                       for path, x in tree_items(a) if path != ("length",))
+        errs["prefill_cache"] = cache_err(cd, cc)
+        for i in range(2):
+            tok = torch.argmax(pc, -1).to(torch.int32)
+            pc, cc = T.decode_step(cfg, p_cpu, tok, cc)
+            pd, cd = T.decode_step(cfg, p_dev, tok.to(device), cd)
+            errs[f"decode{i}"] = _rel_err(pd, pc)
+            errs[f"decode{i}_cache"] = cache_err(cd, cc)
+        worst = max(errs.values())
+        if worst > LM_CARD_CPU_TOL:
+            raise AssertionError(f"{arch}: card vs CPU {errs} (tolerance "
+                                 f"{LM_CARD_CPU_TOL})")
+        out[arch] = worst
+    log(f"LM card vs CPU (smoke configs): worst {max(out.values()):.3e}")
+    return {"worst_rel_err": out, "tol": LM_CARD_CPU_TOL}
+
+
+def run_lm(train_main, serve_main, smi: str, device: str = "cuda") -> dict:
+    """Phase 4d: the LM family (docstring)."""
+    t_phase = time.perf_counter()
+    _free_cuda()
+    out = {"card": smi,
+           "train": lm_granite_train(train_main, device),
+           "serve": lm_granite_serve(serve_main, device),
+           "archs": lm_other_archs(train_main, serve_main, device),
+           "split": lm_split(device),
+           "card_vs_cpu": lm_card_vs_cpu(device),
+           "kernels_on_path": "none: the LM path runs chunked_attention "
+                              "and decode_attention in plain torch, as the "
+                              "reference runs plain jnp (K1-K4 stay held "
+                              "against their plain versions below)"}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"LM phase {out['phase_s']:.1f}s")
+    return out
+
+
 def time_slice(tr) -> dict:
     """Wall time of one epoch's training steps and of one clustered
     federation round, each ending in a device synchronize."""
@@ -1888,6 +2297,7 @@ def main() -> int:
     from repro_torch.kernels import kmeans_assign as km
     from repro_torch.kernels import weighted_agg as wa
     from repro_torch.launch.serve_split import SplitLMConfig
+    from repro_torch.launch.serve import main as lm_serve_main
     from repro_torch.launch.serve_split import main as serve_main
     from repro_torch.launch.train import main as train_main
 
@@ -1939,6 +2349,7 @@ def main() -> int:
     population["phase_s"] = time.perf_counter() - t0
     pop_churn = population.pop("churn")
     quality = run_quality()
+    lm = run_lm(train_main, lm_serve_main, smi)
     kernels = check_kernels(tr)
     for k in kernels:
         k["launches"] = counts[k["name"]]
@@ -1994,6 +2405,7 @@ def main() -> int:
         "population_stage1_ga_s": population["ga_s"],
         "phase_s": recut_s}}), flush=True)
     print(json.dumps({"quality": quality}), flush=True)
+    print(json.dumps({"lm": lm}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

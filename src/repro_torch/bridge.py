@@ -26,6 +26,15 @@ evaluation CNN's conv kernels sit at ``c1``/``c2``, not under a
 
 ``split_lm_from_numpy`` takes the split LM's parameters
 (``{"embed", "blocks": [...], "norm_f"}``), whose layouts the port keeps.
+
+``lm_from_numpy`` / ``lm_to_numpy`` carry the monolithic LM's
+parameters and caches (``repro.models.transformer``), and
+``split_transformer_from_numpy`` the split transformer's
+(``repro.core.split_transformer``): the port keeps their trees and
+layouts, so every leaf is a plain copy. A bfloat16 array (an
+``ml_dtypes`` array, which only JAX's side has) crosses as its 16-bit
+words and is viewed as ``torch.bfloat16``; a 0-dim integer (a cache's
+``length``) becomes a Python int.
 """
 from __future__ import annotations
 
@@ -176,3 +185,44 @@ def classifier_to_numpy(params: Any) -> Any:
     return {name: {leaf: np.ascontiguousarray(_port_to_hwio(
         x.detach().cpu().numpy(), _classifier_kind(name, leaf)))
         for leaf, x in layer.items()} for name, layer in params.items()}
+
+
+def _lm_leaf(a, device) -> Any:
+    a = np.asarray(a)
+    if a.ndim == 0 and np.issubdtype(a.dtype, np.integer):
+        return int(a)
+    if a.dtype.name == "bfloat16":
+        words = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(words.copy()).view(torch.bfloat16).to(device)
+    return torch.tensor(np.ascontiguousarray(a), device=device)
+
+
+def lm_from_numpy(tree: Any, device="cuda") -> Any:
+    """The reference's LM parameters or cache (numpy leaves) -> the
+    port's, on ``device``."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: lm_from_numpy(v, device) for k, v in tree.items()}
+    return _lm_leaf(tree, device)
+
+
+def lm_to_numpy(tree: Any) -> Any:
+    """Inverse of ``lm_from_numpy``: numpy leaves (a bfloat16 leaf as an
+    ``ml_dtypes.bfloat16`` array, for JAX's side), ints as ``np.int32``."""
+    if isinstance(tree, dict):
+        return {k: lm_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, int):
+        return np.int32(tree)
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def split_transformer_from_numpy(params: Any, device="cuda") -> Any:
+    """The reference's split-transformer parameters (``{"server":
+    {"blocks"}, "clients": {group: {"embed", "head", "tail",
+    "final_norm"}}}``, client leaves stacked on the client axis) -> the
+    port's on ``device``; the same tree, leaf by leaf."""
+    return lm_from_numpy(params, device)

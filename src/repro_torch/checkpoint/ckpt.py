@@ -12,6 +12,14 @@ written by either package loads through the other's
 layouts (HWIO kernels) and its leaves decode with ``msgpack`` and the
 reference's ``_unpack_leaf``.
 
+Leaves may also be torch tensors (the LM's parameters, which keep the
+reference's layouts): they are written from the host, and a bfloat16
+leaf as its raw 16-bit words under the reference's dtype name
+``"bfloat16"``, which numpy cannot name without ``ml_dtypes``. Loading
+onto a template of tensors gives tensors with the template's dtype and
+device; a ``"bfloat16"`` leaf is read as 16-bit words and viewed as
+``torch.bfloat16``, bit for bit.
+
 msgpack itself is not a dependency: a small encoder and decoder of the
 types a checkpoint uses (map, str, int, array, bin) write and read the
 same bytes ``msgpack.packb(payload, use_bin_type=True)`` gives.
@@ -23,6 +31,7 @@ import struct
 from typing import Any, Callable, Iterator, List, Tuple
 
 import numpy as np
+import torch
 
 
 # ---------------------------------------------------------------------------
@@ -205,19 +214,43 @@ def _unflatten(template: Any, leaves: Iterator[Any]) -> Any:
 
 
 def _pack_leaf(x) -> dict:
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return {"dtype": "bfloat16", "shape": list(t.shape),
+                    "data": t.view(torch.int16).numpy().tobytes()}
+        x = t.numpy()
     arr = np.asarray(x)
     return {"dtype": str(arr.dtype), "shape": list(arr.shape),
             "data": arr.tobytes()}
 
 
 def _unpack_leaf(d: dict) -> np.ndarray:
-    return np.frombuffer(d["data"], dtype=np.dtype(d["dtype"])
-                         ).reshape(d["shape"])
+    """A leaf as numpy; ``"bfloat16"`` comes back as its int16 words."""
+    dtype = np.int16 if d["dtype"] == "bfloat16" else np.dtype(d["dtype"])
+    return np.frombuffer(d["data"], dtype=dtype).reshape(d["shape"])
+
+
+def _to_template(d: dict, got: np.ndarray, want):
+    """A loaded leaf in the template leaf's type, dtype and device."""
+    if isinstance(want, torch.Tensor):
+        t = torch.from_numpy(got.copy())
+        if d["dtype"] == "bfloat16":
+            t = t.view(torch.bfloat16)
+        return t.to(device=want.device, dtype=want.dtype)
+    dtype = np.asarray(want).dtype
+    if d["dtype"] == "bfloat16":
+        if dtype.name != "bfloat16":
+            raise ValueError("a bfloat16 leaf loads onto a tensor or a "
+                             f"bfloat16 template, not {dtype}")
+        return got.view(dtype).copy()
+    return np.array(got, dtype=dtype)
 
 
 def save_checkpoint(path: str, tree: Any, *, step: int = 0) -> None:
     """Write ``tree`` (numpy leaves, e.g. ``bridge.state_to_numpy`` of a
-    trainer's state) to ``path``, through a temporary file."""
+    trainer's state, or tensors) to ``path``, through a temporary
+    file."""
     leaves, desc = tree_flatten(tree)
     payload = {"step": int(step), "treedef": desc,
                "leaves": [_pack_leaf(x) for x in leaves]}
@@ -231,19 +264,21 @@ def save_checkpoint(path: str, tree: Any, *, step: int = 0) -> None:
 def load_checkpoint(path: str, template: Any) -> Tuple[Any, int]:
     """Returns (tree shaped like ``template``, step). The structure, the
     leaf count and every leaf's shape must match the template's, or it
-    raises ``ValueError``; leaves take the template's dtypes."""
+    raises ``ValueError``; leaves take the template's dtypes (and, for
+    tensors, its devices)."""
     with open(path, "rb") as f:
         payload = unpackb(f.read())
     t_leaves, desc = tree_flatten(template)
     if desc != payload["treedef"]:
         raise ValueError("checkpoint treedef mismatch")
-    loaded = [_unpack_leaf(d) for d in payload["leaves"]]
-    if len(loaded) != len(t_leaves):
+    if len(payload["leaves"]) != len(t_leaves):
         raise ValueError("checkpoint leaf count mismatch")
     out = []
-    for got, want in zip(loaded, t_leaves):
-        if tuple(got.shape) != tuple(np.shape(want)):
-            raise ValueError(f"shape mismatch {got.shape} vs "
-                             f"{np.shape(want)}")
-        out.append(np.array(got, dtype=np.asarray(want).dtype))
+    for d, want in zip(payload["leaves"], t_leaves):
+        got = _unpack_leaf(d)
+        shape = tuple(want.shape if isinstance(want, torch.Tensor)
+                      else np.shape(want))
+        if tuple(got.shape) != shape:
+            raise ValueError(f"shape mismatch {got.shape} vs {shape}")
+        out.append(_to_template(d, got, want))
     return _unflatten(template, iter(out)), payload["step"]

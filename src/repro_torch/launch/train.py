@@ -1,6 +1,14 @@
-"""Training launcher of the PyTorch port (huscf-gan mode).
+"""Training launcher of the PyTorch port.
 
-Runs the paper's split-federated GAN over a heterogeneous client
+Two modes, as in ``repro.launch.train``:
+  * huscf (``--arch huscf-gan``): the paper's split-federated GAN;
+  * centralized LM training on synthetic token streams for any other
+    ``--arch`` (``configs.list_archs()``), ``train_lm``:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
+      --smoke --steps 20 --device cpu
+
+The GAN mode runs the paper's split-federated GAN over a heterogeneous client
 population on one device, with the flags and the printed lines of
 ``python -m repro.launch.train --arch huscf-gan``:
 
@@ -27,13 +35,23 @@ checkpoint format and layouts:
 N federation rounds and regroups the population when it finds strictly
 better cuts.
 
-The LM trainer and ``--fed-devices`` (ROADMAP M10) raise.
+``--fed-devices`` (the mesh code, ROADMAP M10d) raises.
+
+``train_lm`` takes Adam with a warm-up cosine schedule (10 warm-up
+steps, ``max(steps, 20)`` in all) and global-norm clipping at 1.0 on
+``data.tokens.lm_batches``; a VLM's patch embeddings and a whisper
+encoder's frames for step ``i`` come from ``np.random.default_rng(i)``,
+as in the reference. ``--smoke`` takes the reduced config, ``--layers N``
+cuts the depth to N layers; ``--ckpt`` writes the final parameters
+(bf16 leaves as their raw words).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
+import numpy as np
 import torch
 
 
@@ -82,8 +100,69 @@ def train_huscf_gan(args):
     return tr
 
 
-def main(argv=None):
-    """Parse ``argv`` and train; returns the trainer."""
+def lm_batch(cfg, toks: np.ndarray, labs: np.ndarray, i: int, device
+             ) -> dict:
+    """Step ``i``'s batch on ``device``: tokens and labels, plus the VLM's
+    patch embeddings or the encoder's frames from ``default_rng(i)``;
+    an encoder-decoder's text is cut to ``max_target_len``."""
+    B = toks.shape[0]
+    batch = {"tokens": toks, "labels": labs}
+    if cfg.frontend == "vision":
+        batch["prefix_embeds"] = np.random.default_rng(i).normal(
+            0, 1, (B, cfg.num_prefix_embeds, cfg.d_model)).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        batch["enc_frames"] = np.random.default_rng(i).normal(
+            0, 1, (B, cfg.num_prefix_embeds, cfg.d_model)).astype(np.float32)
+        batch["tokens"] = toks[:, :cfg.max_target_len]
+        batch["labels"] = labs[:, :cfg.max_target_len]
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def train_lm(args, params=None):
+    """Centralized LM training; returns (cfg, params, opt_state, the
+    per-step losses as 0-dim device tensors). ``params`` starts from
+    given weights instead of the seeded draw."""
+    from repro_torch import resolve_device
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.tokens import lm_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import adam
+    from repro_torch.optim.schedules import warmup_cosine
+
+    device = resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = T.init_lm(cfg, gen, device)
+    opt = adam(warmup_cosine(args.lr, 10, max(args.steps, 20)),
+               grad_clip=1.0)
+    train_step, opt_init = T.make_train_step(cfg, opt)
+    opt_state = opt_init(params)
+    batches = lm_batches(cfg.vocab, args.batch, args.seq, seed=args.seed)
+    losses = []
+    for i in range(args.steps):
+        toks, labs = next(batches)
+        batch = lm_batch(cfg, toks, labs, i, device)
+        t0 = time.time()
+        params, opt_state, m = train_step(params, opt_state, batch)
+        losses.append(m["loss"])
+        if i % max(1, args.steps // 10) == 0 or i == args.steps - 1:
+            print(f"[train] step {i}: loss={float(m['loss']):.4f} "
+                  f"({time.time() - t0:.2f}s)", flush=True)
+    if args.ckpt:
+        save_checkpoint(args.ckpt, params, step=args.steps)
+        print(f"[train] checkpoint -> {args.ckpt}")
+    return cfg, params, opt_state, losses
+
+
+def main(argv=None, params=None):
+    """Parse ``argv`` and train; returns the GAN trainer, or ``train_lm``'s
+    result for an LM (``params``: the LM's starting weights)."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", required=True)
     ap.add_argument("--scenario", default="2dom_noniid")
@@ -98,6 +177,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced config (LM trainer only)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the LM to this many layers (default: the "
+                         "config's depth)")
     ap.add_argument("--use-kernel", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="hand-written CUDA kernels for aggregation and "
@@ -121,8 +203,7 @@ def main(argv=None):
                     help="torch device to train on (default cuda)")
     args = ap.parse_args(argv)
     if args.arch != "huscf-gan":
-        raise NotImplementedError(f"--arch {args.arch}: the LM trainer is not "
-                                  "ported yet (ROADMAP M10)")
+        return train_lm(args, params)
     return train_huscf_gan(args)
 
 

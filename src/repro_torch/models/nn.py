@@ -14,13 +14,20 @@ kept as ``[K, O, I, kh, kw]``; transposed-conv kernels as
 ``F.conv_transpose2d``. ``repro_torch.bridge`` converts from and to
 the reference's HWIO kernels.
 
-The split LM's layers (``linear_*``, ``rmsnorm_*``, ``gelu``) are
-single copies with the reference's layouts: a dense weight is
-``[in, out]``, an RMSNorm scale ``[dim]``.
+The LM layers (``linear_*``, ``rmsnorm_*``, ``layernorm_*``,
+``embedding_table_init``/``embedding_attend``, ``conv1d_*``, the gated
+activations) are single copies with the reference's layouts: a dense
+weight is ``[in, out]``, a norm scale ``[dim]``, an embedding table
+``[vocab, dim]``, a conv1d kernel ``[k, in, out]``. Where the reference
+asks for a float32 result of a low-precision product
+(``preferred_element_type=jnp.float32``), ``mm_f32`` gives it: the
+products of bf16 values are exact in float32, so casting the operands
+and multiplying in float32 is that product.
 
-Initialisers draw on the CPU from the caller's ``torch.Generator`` and
-then move to ``device``, so a seed gives the same weights on every
-device.
+The GAN's initialisers draw on the CPU from the caller's
+``torch.Generator`` and then move to ``device``, so a seed gives the
+same weights on every device. ``normal_init`` draws on the generator's
+own device, so a generator on the card fills a full-size LM there.
 """
 from __future__ import annotations
 
@@ -58,8 +65,39 @@ def linear_init(in_dim: int, out_dim: int, gen, device) -> Params:
     return {"w": w.to(device), "b": torch.zeros((out_dim,), device=device)}
 
 
-def rmsnorm_init(dim: int, device) -> Params:
-    return {"scale": torch.ones((dim,), device=device)}
+def rmsnorm_init(dim: int, device, dtype=torch.float32) -> Params:
+    return {"scale": torch.ones((dim,), device=device, dtype=dtype)}
+
+
+def layernorm_init(dim: int, device, dtype=torch.float32) -> Params:
+    return {"scale": torch.ones((dim,), device=device, dtype=dtype),
+            "bias": torch.zeros((dim,), device=device, dtype=dtype)}
+
+
+def normal_init(shape, std: float, gen, device, dtype=torch.float32
+                ) -> torch.Tensor:
+    """``std`` times standard normal draws from ``gen`` (on its own
+    device), as ``dtype`` on ``device``."""
+    x = torch.randn(shape, generator=gen, device=gen.device) * std
+    return x.to(device=device, dtype=dtype)
+
+
+def embedding_table_init(vocab: int, dim: int, gen, device,
+                         dtype=torch.float32) -> Params:
+    """One LM embedding table ``[vocab, dim]``, std 1/sqrt(dim)."""
+    return {"table": normal_init((vocab, dim), 1.0 / math.sqrt(dim), gen,
+                                 device, dtype)}
+
+
+def conv1d_init(in_ch: int, out_ch: int, kernel: int, gen, device, *,
+                use_bias: bool = True, dtype=torch.float32) -> Params:
+    """He-normal ``[kernel, in, out]`` kernel (the reference's TIO)."""
+    p = {"w": normal_init((kernel, in_ch, out_ch),
+                          math.sqrt(2.0 / (kernel * in_ch)), gen, device,
+                          dtype)}
+    if use_bias:
+        p["b"] = torch.zeros((out_ch,), device=device, dtype=dtype)
+    return p
 
 
 def embedding_init(n: int, vocab: int, dim: int, gen, device) -> Params:
@@ -106,6 +144,32 @@ def embedding_apply(p: Params, ids: torch.Tensor) -> torch.Tensor:
     """table [K, V, dim], ids [K, b] -> [K, b, dim]."""
     k = torch.arange(ids.shape[0], device=ids.device)[:, None]
     return p["table"][k, ids.long()]
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with a float32 result, whatever the operands' dtype."""
+    return torch.matmul(a.float(), b.float())
+
+
+def embedding_attend(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Tied output head: float32 logits ``x @ table.T``."""
+    return mm_f32(x, p["table"].t())
+
+
+def conv1d_apply(p: Params, x: torch.Tensor, *, stride: int = 1,
+                 padding: str = "SAME") -> torch.Tensor:
+    """x [B, T, C] -> [B, T', O]: XLA's "SAME" (or "VALID") conv1d,
+    computed in float32 and cast back to ``x``'s dtype."""
+    w = p["w"].float().permute(2, 1, 0)                 # [O, I, k]
+    xt = x.float().transpose(1, 2)                      # [B, C, T]
+    if padding == "SAME":
+        xt = F.pad(xt, same_pads(x.shape[1], w.shape[-1], stride))
+    elif padding != "VALID":
+        raise ValueError(f"padding {padding!r}")
+    y = F.conv1d(xt, w, stride=stride).transpose(1, 2)
+    if "b" in p:
+        y = y + p["b"].float()
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -214,10 +278,29 @@ def rmsnorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6
     return (y * p["scale"].float()).to(x.dtype)
 
 
+def layernorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-5
+                    ) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) * scale + bias over the last axis,
+    with float32 statistics (biased variance)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """The tanh approximation, which ``jax.nn.gelu`` takes by default
     (PyTorch's default is the exact erf form)."""
     return F.gelu(x, approximate="tanh")
+
+
+def geglu(x: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    return gelu(gate) * x
+
+
+def swiglu(x: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate) * x
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +330,14 @@ def tree_weighted_sum(stacked, weights: torch.Tensor):
     w = weights.to(torch.float32)
     return tree_map(lambda x: torch.einsum("k,k...->...", w, x.float())
                     .to(x.dtype), stacked)
+
+
+def tree_size(tree) -> int:
+    return sum(int(x.numel()) for x in tree_leaves(tree))
+
+
+def tree_bytes(tree) -> int:
+    return sum(int(x.numel() * x.element_size()) for x in tree_leaves(tree))
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -10,10 +10,11 @@ the reference.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch.models.nn import global_norm
 from repro_torch.tree import tree_map
 
 
@@ -23,26 +24,49 @@ class AdamState(NamedTuple):
     nu: Any
 
 
-def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         weight_decay: float = 0.0, grad_clip: Optional[float] = None):
+    """``lr`` is a float or a callable (Python int step) -> lr. With
+    ``grad_clip`` the gradients are scaled by ``min(1, clip / (gn +
+    1e-9))`` of their global norm ``gn``, a device tensor (no host
+    readback); ``weight_decay`` adds ``wd * p`` to the step (decoupled,
+    as in the reference). Gradients and moments are float32; a
+    parameter is updated in float32 and cast back to its dtype. Leaves
+    are updated one at a time, so the float32 temporaries of one leaf
+    are live at once, not the whole tree's."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
     def init(params) -> AdamState:
         zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                          params)
         return AdamState(0, zeros, tree_map(torch.clone, zeros))
 
     def update(state: AdamState, grads, params):
+        scale = None
+        if grad_clip is not None:
+            gn = global_norm(grads)
+            scale = torch.clamp(grad_clip / (gn + 1e-9), max=1.0)
         step = state.step + 1
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, grads)
+        lr_t = lr_fn(step)
         step_f = torch.tensor(step, dtype=torch.float32)
         bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** step_f)
         bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** step_f)
 
-        def upd(p, m, v):
+        def upd(p, g, m, v):
+            g = g.float()
+            if scale is not None:
+                g = g * scale
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
             delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-            return p - lr * delta
+            if weight_decay:
+                delta = delta + weight_decay * p.float()
+            return m, v, (p.float() - lr_t * delta).to(p.dtype)
 
-        new_params = tree_map(upd, params, mu, nu)
-        return AdamState(step, mu, nu), new_params
+        out = tree_map(upd, params, grads, state.mu, state.nu)
+        return (AdamState(step, tree_map(lambda t: t[0], out),
+                          tree_map(lambda t: t[1], out)),
+                tree_map(lambda t: t[2], out))
 
     return init, update
 
