@@ -11,8 +11,9 @@ Phases (any failure exits non-zero and prints no result):
   3. the training slice: ``repro_torch.launch.train.main`` at the paper's
      full Table-3 widths, 8 clients, --epochs 6 --federate-every 2 (two
      FedAvg warm-up rounds, then clustered rounds) --ckpt
-     build/slice.ckpt, with the launch counts of K1/K2 set to 0 just
-     before and read just after;
+     build/slice.ckpt, on the launcher's default fused epochs (CUDA
+     graphs of the training step), with the launch counts of K1/K2 set
+     to 0 just before and read just after;
   4. checks the outcome: the checkpoint loads back onto the trained
      state bit for bit, the rounds ran, every kernel launched, losses
      and parameters are finite, the generator's images have the right
@@ -21,6 +22,21 @@ Phases (any failure exits non-zero and prints no result):
      per-(layer, cluster) oracle (``fused=False``, K1's S = 1 entry
      point) agrees with the fused round, and a small trainer on the card
      agrees with the same trainer on the CPU;
+  3b. the fused epoch (``check_fused_epoch``, on the slice's trainer
+     after its timings): from one state and one generator state, a graph
+     epoch against the step loop (``fused_epoch=False``) on the same
+     trainer. The batches (copied out by a recording sampler captured in
+     the graph) and the EMA after one step are bit-identical, with the
+     EMA's first observation and with a later one; after an epoch the
+     learnable parameters agree within 2 lr times ``adam_bound`` and the
+     losses are finite and within FUSED_LOSS_RTOL; a whole fused epoch is
+     dispatched under ``torch.cuda.set_sync_debug_mode("error")``; the
+     same agreement holds after a federation round, after a checkpoint
+     load (the loaded leaves copied into the graphs' tensors bit for bit)
+     and after an ``apply_churn`` (the graphs dropped and captured
+     anew). Prints capture seconds, the pool's bytes, the epoch's wall
+     time in turns (graph, loop, loop, graph), and for both paths the
+     profiled busy share, device kernels and host launch calls per step;
   3c. cut search and re-cut: the GA at the paper's protocol
      (``GAConfig()``: population 1000, 60 generations, patience 15, seed
      0; batch 64) on the paper's 100-client mix, on the card: no worse
@@ -44,7 +60,9 @@ Phases (any failure exits non-zero and prints no result):
      --agg-chunk 64 --epochs 4 --federate-every 1 --base-size 24 (one
      step per epoch; two chunked cohort FedAvg rounds, then two chunked
      cohort clustered rounds), with the counts set to 0 just before and
-     read just after: K1 launched once per chunk tile (sum over groups
+     read just after, on fused epochs (peak device memory with the
+     graphs' pool, the pool's bytes, capture seconds): K1 launched once
+     per chunk tile (sum over groups
      of ceil(Kg / 64), per net per round; counted by S: 8 in the FedAvg
      rounds, 24 in the clustered ones) and K2 only on 512 rows. Then
      one more clustered round leaves non-members bit for bit and moves
@@ -55,7 +73,11 @@ Phases (any failure exits non-zero and prints no result):
      label-KLD round (host numpy clustering at the device round's k)
      gives finite weights that sum to 1 per (cluster, cohort); one more
      epoch and clustered round are profiled (device busy share, the
-     kernels that take the time). Then 16 seeded clients leave and 16
+     kernels that take the time); an epoch is timed as graph, loop, loop,
+     graph (the graphs dropped for the loop, whose peak above the state
+     is read: the pool and the loop's working set do not fit together),
+     both profiled, and the graphs are dropped before the dense rounds.
+     Then 16 seeded clients leave and 16
      join on the paper's profiles (``apply_churn``: rebuild seconds, a
      warm search's ms, peak device memory above the state), and one
      epoch and one clustered chunked round launch K1 once per chunk tile
@@ -76,7 +98,10 @@ Phases (any failure exits non-zero and prints no result):
      one state (parameters within 2 lr times Adam's largest steps) and
      the CNN trained on both from one ``params=`` gives logits within
      1e-4 of the largest; one FedGAN step at 8 clients is profiled
-     (device busy share). Prints the ``quality`` line;
+     (device busy share); paper Tables 23 and 17 through
+     ``launch.ablation`` at the reference's sizes (6 clients, base size
+     96, 4 epochs), every metric finite and each row logged. Prints the
+     ``quality`` line;
   4d. the LM family (``run_lm``): granite-3-2b at its published config
      (40 layers, d 2048, bf16) through ``launch.train.main`` (5 steps,
      batch 16, seq 128; losses and parameters finite, peak device
@@ -364,8 +389,9 @@ def check_cpu_agreement() -> None:
     devices = [PAPER_DEVICES[i % 2] for i in range(4)]
     cuts = [Cut(1, 3, 1, 3) if i % 2 == 0 else Cut(2, 4, 2, 4)
             for i in range(4)]
+    # a host batch source cannot be replayed: both run the step loop
     cfg = HuSCFConfig(batch=4, steps_per_epoch=2, federate_every=10 ** 6,
-                      warmup_fed_rounds=1)
+                      warmup_fed_rounds=1, fused_epoch=False)
     rng = np.random.default_rng(0)
     batches = []
     for _ in range(4):
@@ -957,12 +983,14 @@ def time_kmeans_assign(gen, N: int, M: int, D: int) -> dict:
 
 
 def same_bits(a, b) -> bool:
-    """Two state leaves hold the same bits (tensors) or values (ints)."""
+    """Two state leaves hold the same bits (tensors) or values (ints, or
+    an int and a 0-dim integer tensor: Adam's step)."""
     import torch
-    if not isinstance(b, torch.Tensor):
-        return a == b
+    if not isinstance(a, torch.Tensor) or not isinstance(b, torch.Tensor):
+        return int(a) == int(b)
     return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
-        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8)))
 
 
 def check_checkpoint(tr, path: str) -> int:
@@ -1010,6 +1038,7 @@ def run_population(train_main, device: str = "cuda") -> dict:
                                              k_selection_bound)
     from repro_torch.core.federation import (N_LAYERS,
                                              federate_client_params_device)
+    from repro_torch.core.huscf import _carry_items
     from repro_torch.kernels import kmeans_assign as km
     from repro_torch.kernels import ops
     from repro_torch.kernels import weighted_agg as wa
@@ -1029,6 +1058,7 @@ def run_population(train_main, device: str = "cuda") -> dict:
         return agg(weights, stacked)
 
     ops.kmeans_assign, ops.clustered_agg = recording_assign, recording_agg
+    torch.cuda.reset_peak_memory_stats()
     wa.launches = 0
     km.launches = 0
     try:
@@ -1043,6 +1073,15 @@ def run_population(train_main, device: str = "cuda") -> dict:
     finally:
         ops.kmeans_assign, ops.clustered_agg = assign, agg
     counts = {"clustered_agg": wa.launches, "kmeans_assign": km.launches}
+    # the launcher's fused epochs: peak device memory with the graphs'
+    # pool, beside the pool's own bytes
+    memory = {"peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "reserved_bytes": torch.cuda.memory_reserved(),
+              "graph_pool_bytes": tr._graph_pool.pool_bytes,
+              "capture_s": tr._graph_pool.capture_s,
+              "state_bytes": sum(x.numel() * x.element_size()
+                                 for _, x in _carry_items(tr.state))}
+    log(f"population memory (fused epochs): {memory}")
     k1_by_s = {str(S): k1_s.count(S) for S in sorted(set(k1_s))}
     modes = [d["mode"] for d in tr.fed_log]
     tiles = k1_tiles(tr.groups, POP_CHUNK)
@@ -1073,11 +1112,45 @@ def run_population(train_main, device: str = "cuda") -> dict:
     # one epoch (one step) and one more clustered round, timed; the round
     # leaves every non-member's copies bit for bit and moves every member
     steps = max(1, int(np.median(tr.sizes)) // tr.cfg.batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tr.train_steps(steps)
-    torch.cuda.synchronize()
-    epoch_s = time.perf_counter() - t0
+    epoch_s = {"graph": [], "loop": []}
+
+    def timed_epoch(fused: bool) -> None:
+        tr.cfg.fused_epoch = fused
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_steps(steps)
+        torch.cuda.synchronize()
+        epoch_s["graph" if fused else "loop"].append(
+            time.perf_counter() - t0)
+        tr.cfg.fused_epoch = True
+
+    # graph, loop, loop, graph; the graphs' pool and the step loop's own
+    # working set do not fit the card together at this scale, so the
+    # graphs are dropped for the loop (and its peak above the state is
+    # read) and captured again after it
+    timed_epoch(True)
+    tr._drop_graphs()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    timed_epoch(False)
+    memory["loop_epoch_peak_above_bytes"] = (
+        torch.cuda.max_memory_allocated() - base)
+    timed_epoch(False)
+    tr.cfg.fused_epoch = False
+    prof_loop = device_profile(lambda: tr.train_steps(steps), per=steps)
+    tr.cfg.fused_epoch = True
+    torch.cuda.empty_cache()
+    warm_graphs(tr, steps)
+    memory["recapture_s"] = tr._graph_pool.capture_s
+    timed_epoch(True)
+    prof_epoch = device_profile(lambda: tr.train_steps(steps), per=steps)
+    log(f"population epochs (s): {epoch_s}; loop epoch peak above the "
+        f"state and carry {memory['loop_epoch_peak_above_bytes']}")
+    # the pool stays reserved between epochs; the dense rounds compared
+    # below need its room, so the graphs go (the churn captures anew)
+    tr._drop_graphs()
+    torch.cuda.empty_cache()
     before = {net: tree_map(torch.clone, tr.state[net]["client"])
               for net in ("G", "D")}
     torch.cuda.synchronize()
@@ -1201,8 +1274,7 @@ def run_population(train_main, device: str = "cuda") -> dict:
                              f"{sums}")
     log(f"population label-KLD round ({lk_s:.1f}s, k={lk['k']}): weights "
         f"sum to 1 per (cluster, cohort): {sums}")
-    # where an epoch (one step) and a clustered round spend their time
-    prof_epoch = device_profile(lambda: tr.train_steps(steps), per=steps)
+    # where a clustered round spends its time
     prof_round = device_profile(tr.federate)
     log(f"population profiles: epoch busy share "
         f"{prof_epoch.get('busy_share')}, round busy share "
@@ -1225,6 +1297,7 @@ def run_population(train_main, device: str = "cuda") -> dict:
             "round_bound_k": bound, "rounds_by_net": rounds,
             "max_rel_diff": worst, "cluster_s": cluster_s,
             "label_kld_s": lk_s, "profile_epoch": prof_epoch,
+            "profile_epoch_loop": prof_loop, "memory": memory,
             "profile_round": prof_round,
             "label_kld_k": lk["k"],
             "k1_D": {net: plans[(net, None)].n_cols for net in ("G", "D")},
@@ -1655,16 +1728,18 @@ def time_attention(gen, lm_cfg, lm_batch: int, lm_prompt: int,
     return out
 
 
-def adam_bound(steps: int, b1: float, b2: float = 0.999) -> float:
-    """Sum over t <= steps of the largest step Adam can take at step t in
-    units of lr, sqrt(sum_i a_i^2 / u_i) over the bias-corrected weights
-    a_i of the first moment and u_i of the second (1 at t = 1; 1.054 at
-    t = 2 with b1 = 0.5). A gradient that is zero up to rounding (a conv
-    bias before BatchNorm) can take either sign on two devices, so two
-    runs from one state drift apart by up to 2 lr times this sum."""
+def adam_bound(steps: int, b1: float, b2: float = 0.999,
+               start: int = 0) -> float:
+    """Sum over Adam's steps start < t <= start + steps of the largest
+    step Adam can take at step t in units of lr, sqrt(sum_i a_i^2 / u_i)
+    over the bias-corrected weights a_i of the first moment and u_i of
+    the second (1 at t = 1; 1.054 at t = 2 with b1 = 0.5). A gradient
+    that is zero up to rounding (a conv bias before BatchNorm) can take
+    either sign on two devices, so two runs from one state drift apart
+    by up to 2 lr times this sum."""
     import numpy as np
     total = 0.0
-    for t in range(1, steps + 1):
+    for t in range(start + 1, start + steps + 1):
         a = np.array([(1 - b1) * b1 ** (t - i) for i in range(1, t + 1)])
         u = np.array([(1 - b2) * b2 ** (t - i) for i in range(1, t + 1)])
         a, u = a / (1 - b1 ** t), u / (1 - b2 ** t)
@@ -1758,6 +1833,29 @@ def check_quality_cpu_agreement(device: str = "cuda") -> dict:
     return out
 
 
+def run_tables(device: str = "cuda") -> dict:
+    """Paper Tables 23 and 17 through ``launch.ablation`` at the
+    reference's sizes (6 clients, base size 96, 4 epochs, batch 16), on
+    the default fused epochs: every metric finite; each table's rows
+    printed."""
+    import numpy as np
+    from repro_torch.launch.ablation import run_ablation, run_kld_comparison
+    out = {}
+    for table, fn in (("table23", run_ablation),
+                      ("table17", run_kld_comparison)):
+        res = out[table] = fn(device=device)
+        for name, r in res.items():
+            for dom, m in r["metrics"].items():
+                if not all(np.isfinite(v) for v in m.values()):
+                    raise AssertionError(f"{table}/{name}/{dom}: metrics "
+                                         f"not finite: {m}")
+                log(f"{table}/{name}/{dom}: acc {m['accuracy']:.3f} f1 "
+                    f"{m['f1']:.3f} score {m['score']:.2f} fid "
+                    f"{m['fid']:.1f} (train {r['train_s']:.2f}s, eval "
+                    f"{r['eval_s']:.2f}s, rounds {r['rounds']})")
+    return out
+
+
 QUALITY_SCENARIO = "2dom_noniid"
 QUALITY_CLIENTS, QUALITY_BASE_SIZE, QUALITY_EPOCHS = 8, 128, 6
 
@@ -1798,6 +1896,7 @@ def run_quality(device: str = "cuda") -> dict:
                                      f"finite: {m}")
     pipeline = check_metrics_pipeline(device)
     cpu_agreement = check_quality_cpu_agreement(device)
+    tables = run_tables(device)
     clients = build_scenario(QUALITY_SCENARIO, num_clients=QUALITY_CLIENTS,
                              base_size=QUALITY_BASE_SIZE, seed=0)
     fed = FedGANTrainer(clients, BaselineConfig(batch=16, federate_every=2,
@@ -1822,7 +1921,7 @@ def run_quality(device: str = "cuda") -> dict:
                                                "epochs", "steps", "eval_s",
                                                "metrics")}
                       for algo, r in results.items()},
-            "huscf_launches": launches,
+            "huscf_launches": launches, "tables": tables,
             "metrics_pipeline": pipeline, "cpu_agreement": cpu_agreement,
             "fedgan_step_profile": profile,
             "phase_s": time.perf_counter() - t_phase}
@@ -2214,11 +2313,13 @@ def run_lm(train_main, serve_main, smi: str, device: str = "cuda") -> dict:
 
 
 def time_slice(tr) -> dict:
-    """Wall time of one epoch's training steps and of one clustered
-    federation round, each ending in a device synchronize."""
+    """Wall time of one epoch's training steps (on captured graphs) and
+    of one clustered federation round, each ending in a device
+    synchronize."""
     import numpy as np
     import torch
     steps = max(1, int(np.median(tr.sizes)) // tr.cfg.batch)
+    warm_graphs(tr, steps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tr.train_steps(steps)
@@ -2245,13 +2346,19 @@ def busy_us(spans) -> float:
     return total if cur_e is None else total + cur_e - cur_s
 
 
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
 def device_profile(fn, per: int = 1, top_n: int = 6) -> dict:
     """``fn`` once under torch.profiler: wall time, device busy time and
     share (the union of the device activities' intervals over wall
     time), the summed activity time beside it (above the busy time when
-    activities overlap), the streams they ran on, kernel launches, and
-    the kernels that take the most device time; launches and times in
-    the list are per ``per`` (e.g. per training step)."""
+    activities overlap), the streams they ran on, kernel launches (device
+    kernels, and the host's launch calls: kernels, graphs, copies and
+    fills), and the kernels that take the most device time; launches and
+    times in the list are per ``per`` (e.g. per training step)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2268,10 +2375,14 @@ def device_profile(fn, per: int = 1, top_n: int = 6) -> dict:
     busy = busy_us((e.time_range.start, e.time_range.end)
                    for e in events) / 1e6
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:top_n]
+    host = sum(e.count for e in prof.key_averages()
+               if e.device_type != DeviceType.CUDA
+               and e.key in HOST_LAUNCH_CALLS)
     return {"wall_s": wall, "device_busy_s": busy, "busy_share": busy / wall,
             "device_sum_s": sum(e.self_device_time_total for e in dev) / 1e6,
             "streams": len({e.device_resource_id for e in events}),
             "kernels": sum(e.count for e in dev) / per,
+            "host_launches": host / per,
             "top": [(e.key[:70], e.self_device_time_total / 1e3 / per,
                      e.count // per) for e in top]}
 
@@ -2284,6 +2395,239 @@ def profile_epoch(tr) -> dict:
     prof = device_profile(lambda: tr.train_steps(steps), per=steps)
     prof["kernels_per_step"] = prof.pop("kernels")
     return {"steps": steps, **prof}
+
+
+# graph epoch vs step loop: the last step's losses, after parameters that
+# may differ by 2 lr times Adam's bound (a fresh Adam after a churn moves
+# every parameter by about lr per step, whatever its gradient's size)
+FUSED_LOSS_RTOL = 1e-2
+
+
+def warm_graphs(tr, steps: int) -> None:
+    """Fused epochs until the trainer's graphs are captured and have run
+    once: the first step after construction or a regroup runs eagerly,
+    and a graph's first launch uploads it."""
+    tr.train_steps(steps)
+    if not tr._graph_pool.graphs:
+        tr.train_steps(steps)
+    tr.train_steps(steps)
+
+
+def clone_state(state: dict) -> dict:
+    """A copy of a trainer state on its device, Adam's steps included."""
+    import torch
+    from repro_torch.optim.optimizers import AdamState
+    from repro_torch.tree import tree_map
+
+    def c(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+    return {k: (AdamState(c(v.step), tree_map(c, v.mu), tree_map(c, v.nu))
+                if isinstance(v, AdamState) else tree_map(c, v))
+            for k, v in state.items()}
+
+
+def snapshot(tr) -> dict:
+    """What a fused epoch starts from: the state, the EMA and its flag,
+    and the training generator's state."""
+    return {"state": clone_state(tr.state), "ema": tr._mid_ema.clone(),
+            "ema_init": tr._ema_init, "gen": tr._train_gen.get_state()}
+
+
+def restore(tr, snap: dict, ema_init=None) -> None:
+    """Put a snapshot back as a caller would: new tensors assigned to the
+    trainer (the fused path copies them into its own)."""
+    tr.state = clone_state(snap["state"])
+    tr._mid_ema = snap["ema"].clone()
+    tr._ema_init = snap["ema_init"] if ema_init is None else ema_init
+    tr._train_gen.set_state(snap["gen"])
+
+
+def run_steps(tr, fused: bool, steps: int) -> dict:
+    """``steps`` training steps as a graph epoch or as the step loop, on
+    the same trainer; returns the losses, a copy of the state and the
+    EMA."""
+    import torch
+    tr.cfg.fused_epoch = fused
+    try:
+        m = tr.train_steps(steps)
+    finally:
+        tr.cfg.fused_epoch = True
+    torch.cuda.synchronize()
+    return {"losses": m, "state": clone_state(tr.state),
+            "ema": tr._mid_ema.clone()}
+
+
+def param_diff(a: dict, b: dict, stats: bool = False) -> float:
+    """Largest |a - b| over both nets' learnable parameters of two states
+    (``stats``: over their BatchNorm running statistics instead, relative
+    to each leaf's scale, at least 1)."""
+    from repro_torch.tree import tree_items
+    return max(float((x - y).abs().max()) / (
+        max(1.0, float(y.abs().max())) if stats else 1.0)
+        for net in ("G", "D")
+        for (p, x), (_, y) in zip(tree_items(a[net]), tree_items(b[net]))
+        if (p[-1] in ("mean", "var")) == stats)
+
+
+def graph_vs_loop(tr, snap: dict, steps: int, what: str) -> dict:
+    """From one state and generator state: a graph epoch against the
+    step loop. Learnable parameters within 2 lr times ``adam_bound`` over
+    the epoch's Adam steps (cuDNN's weight gradients are not
+    deterministic, so two loops differ too), losses finite and within
+    FUSED_LOSS_RTOL; the differences of the BatchNorm statistics and the
+    EMA, which follow the activations, are reported."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    restore(tr, snap)
+    g = run_steps(tr, True, steps)
+    restore(tr, snap)
+    lp = run_steps(tr, False, steps)
+    tol = 2 * tr.cfg.lr * adam_bound(steps, tr.cfg.adam_b1,
+                                     start=int(snap["state"]["opt_d"].step))
+    dp = param_diff(g["state"], lp["state"])
+    ds = param_diff(g["state"], lp["state"], stats=True)
+    de = float((g["ema"] - lp["ema"]).abs().max())
+    dl = max(abs(g["losses"][k] - lp["losses"][k]) / abs(lp["losses"][k])
+             for k in lp["losses"])
+    if not (dp <= tol and dl <= FUSED_LOSS_RTOL and all(
+            math.isfinite(v) for v in g["losses"].values())):
+        raise AssertionError(f"{what}: graph epoch vs step loop: params "
+                             f"{dp} (tol {tol}), EMA {de}, losses "
+                             f"{g['losses']} vs {lp['losses']}")
+    bits = all(torch.equal(x, y) for net in ("G", "D")
+               for x, y in zip(tree_leaves(g["state"][net]),
+                               tree_leaves(lp["state"][net])))
+    log(f"fused epoch {what}: graph vs loop max |dparam| {dp:.3e} (tol "
+        f"{tol:.3e}), BN statistics rel {ds:.3e}, EMA {de:.3e}, losses rel "
+        f"{dl:.3e}, bit-equal {bits}")
+    return {"max_abs_dparam": dp, "tol": tol, "max_rel_dstats": ds,
+            "max_abs_dema": de, "loss_rel": dl, "bit_equal": bits}
+
+
+def check_fused_epoch(tr, ckpt: str, device: str = "cuda") -> dict:
+    """Phase 3b (docstring): the slice's fused epoch as CUDA graphs against
+    the step loop on the same trainer, from one state and generator
+    state; the timings of both; then agreement after a federation round,
+    a checkpoint load and a churn. Returns the ``fused_epoch`` fields of
+    the ``slice`` line."""
+    import numpy as np
+    import torch
+    from repro_torch.bridge import state_from_numpy, state_to_numpy
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.core.latency import DeviceProfile
+    from repro_torch.data.partition import build_scenario
+    steps = max(1, int(np.median(tr.sizes)) // tr.cfg.batch)
+    s0 = snapshot(tr)
+    out = {"steps": steps}
+
+    # 1-2. batches and the EMA after one step, bit for bit, with the EMA's
+    # first observation (flag off) and a later one (flag on); the sampler
+    # copies each batch into tensors made before the capture
+    record, sample = {}, tr._sample
+
+    def recording(gen):
+        b = sample(gen)
+        for f, d in b.items():
+            for n, x in d.items():
+                if (f, n) not in record:
+                    record[(f, n)] = torch.empty_like(x)
+                record[(f, n)].copy_(x)
+        return b
+
+    tr._drop_graphs()
+    tr._sample = recording
+    try:
+        restore(tr, s0)
+        tr.train_steps(1)                        # the eager warm-up
+        for flag in (False, True):
+            got = {}
+            for fused in (True, False):
+                restore(tr, s0, ema_init=flag)
+                r = run_steps(tr, fused, 1)
+                got[fused] = ({k: v.clone() for k, v in record.items()},
+                              r["ema"])
+            (bg, eg), (bl, el) = got[True], got[False]
+            if not all(same_bits(bg[k], bl[k]) for k in bl):
+                raise AssertionError(f"graph vs loop batches differ (EMA "
+                                     f"flag {flag})")
+            if not same_bits(eg, el):
+                raise AssertionError(f"graph vs loop EMA after one step "
+                                     f"differs (EMA flag {flag}) by "
+                                     f"{float((eg - el).abs().max())}")
+        log(f"fused epoch: batches ({len(record)} tensors) and the EMA "
+            f"after one step bit-identical, EMA flag off and on")
+    finally:
+        del tr._sample
+        tr._drop_graphs()
+        record.clear()
+
+    # the graph epoch's capture (after a warm-up epoch), then timings of
+    # both paths in turns from the same state
+    restore(tr, s0)
+    warm_graphs(tr, steps)
+    torch.cuda.synchronize()
+    pool = tr._graph_pool
+    out.update({"capture_s": pool.capture_s, "graphs": pool.graphs,
+                "pool_bytes": pool.pool_bytes})
+    walls = {True: [], False: []}
+    for fused in (True, False, False, True):
+        restore(tr, s0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_steps(tr, fused, steps)
+        walls[fused].append(time.perf_counter() - t0)
+    out["epoch_s"] = {"graph": walls[True], "loop": walls[False]}
+    for fused, name in ((True, "graph"), (False, "loop")):
+        restore(tr, s0)
+        tr.cfg.fused_epoch = fused
+        try:
+            tr.train_steps(steps)    # the restored leaves are copied in
+            out[f"profile_{name}"] = device_profile(
+                lambda: tr.train_steps(steps), per=steps)
+        finally:
+            tr.cfg.fused_epoch = True
+    log(f"fused epoch: capture {out['capture_s']:.3f}s, pool "
+        f"{out['pool_bytes']} bytes; epoch s graph {walls[True]} loop "
+        f"{walls[False]}; busy share graph "
+        f"{out['profile_graph']['busy_share']:.3f} loop "
+        f"{out['profile_loop']['busy_share']:.3f}; host launches per step "
+        f"graph {out['profile_graph']['host_launches']} loop "
+        f"{out['profile_loop']['host_launches']}")
+
+    # 3. the parameters after an epoch
+    out["epoch"] = graph_vs_loop(tr, s0, steps, "from the trained state")
+    # 4. a whole fused epoch dispatched with every host sync an error
+    restore(tr, s0)
+    without_sync(lambda: tr._fused_epoch(steps))
+    torch.cuda.synchronize()
+    log("fused epoch: dispatched under set_sync_debug_mode('error')")
+
+    # 5. after a federation round, a checkpoint load and a churn
+    restore(tr, s0)
+    joiner = build_scenario("2dom_noniid", num_clients=8, base_size=24,
+                            seed=1)[0]
+    fast = DeviceProfile("ultrafast", 3.0e9, 64.0, 500e6)
+    for event in ("federation_round", "checkpoint_load", "churn"):
+        if event == "federation_round":
+            tr.federate()
+        elif event == "checkpoint_load":
+            save_checkpoint(ckpt, state_to_numpy(tr.state), step=tr.epoch)
+            tr.train_steps(steps)                # the carry moves on
+            back, _ = load_checkpoint(ckpt, state_to_numpy(tr.state))
+            tr.state = state_from_numpy(back, device)
+        else:
+            tr.apply_churn(leave=[0], join=[(joiner, fast)])
+        snap = snapshot(tr)
+        if event != "churn":
+            # the replaced leaves are copied into the carry bit for bit
+            tr._adopt_carry()
+            from repro_torch.checkpoint.ckpt import tree_flatten
+            if not all(map(same_bits, tree_flatten(tr.state)[0],
+                           tree_flatten(snap["state"])[0])):
+                raise AssertionError(f"{event}: the carry does not hold the "
+                                     "replaced state")
+        out[event] = graph_vs_loop(tr, snap, steps, f"after the {event}")
+    return out
 
 
 def main() -> int:
@@ -2349,6 +2693,9 @@ def main() -> int:
     population["phase_s"] = time.perf_counter() - t0
     pop_churn = population.pop("churn")
     quality = run_quality()
+    # the slice trainer's graphs hold a private pool that the LM phase's
+    # 63 GiB peak needs room beside; they are captured again below
+    tr._drop_graphs()
     lm = run_lm(train_main, lm_serve_main, smi)
     kernels = check_kernels(tr)
     for k in kernels:
@@ -2395,6 +2742,8 @@ def main() -> int:
                    "rounds": [d["mode"] for d in tr.fed_log],
                    "checkpoint_leaves": ckpt_leaves,
                    "legacy_oracle": legacy})
+    timing["fused_epoch"] = check_fused_epoch(
+        tr, os.path.join(ROOT, "build", "fused.ckpt"))
     print(json.dumps({"slice": timing}), flush=True)
     print(json.dumps({"population": population}), flush=True)
     print(json.dumps({"serve": {"gan": gan_serve, "lm": lm_serve}}),

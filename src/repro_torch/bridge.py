@@ -127,7 +127,7 @@ def state_to_numpy(tree: Any, path: Tuple[str, ...] = ()) -> Any:
     if isinstance(tree, dict):
         return {k: state_to_numpy(v, path + (k,)) for k, v in tree.items()}
     if isinstance(tree, AdamState):
-        return AdamState(np.int32(tree.step), state_to_numpy(tree.mu),
+        return AdamState(np.int32(int(tree.step)), state_to_numpy(tree.mu),
                          state_to_numpy(tree.nu))
     if isinstance(tree, int):
         return np.int32(tree)
@@ -136,8 +136,9 @@ def state_to_numpy(tree: Any, path: Tuple[str, ...] = ()) -> Any:
 
 def leaf_to_numpy(path: Tuple[str, ...], x: torch.Tensor) -> np.ndarray:
     """One parameter leaf of a GAN tree at ``path`` -> the reference's
-    layout, as numpy."""
-    a = x.detach().cpu().numpy()
+    layout, as a numpy copy: the trainer's fused epochs write into its
+    tensors in place, so a view would change under the caller."""
+    a = x.detach().to("cpu", copy=True).numpy()
     return np.ascontiguousarray(_port_to_hwio(a, _kind(path)))
 
 

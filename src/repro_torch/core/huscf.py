@@ -8,6 +8,12 @@ PyTorch (port of ``repro.core.huscf``).
 4. Log-space KLD weights, then the clustered Eq.-16 aggregation of the
    client segments; vanilla FedAvg for the first warm-up rounds.
 
+Stage 2 runs as fused epochs by default (``make_epoch_fn``, the
+reference's ``fused_epoch``): every step writes into the trainer's own
+tensors and draws its batch on the device, and on the card an epoch is
+replays of a CUDA graph of the step; ``fused_epoch=False`` runs the
+per-step loop, the oracle.
+
 Stages 3 and 4 run on the device; with ``use_kernel`` (the default
 here) the assignment step of k-means is kernel K2 and every
 aggregation (every chunk tile of a chunk-streamed round) is kernel K1.
@@ -38,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,7 +71,7 @@ from repro_torch.data.pipeline import sample_batch, stage_clients
 from repro_torch.models import gan
 from repro_torch.models.gan import (DISC_LAYER_DEFS, DISC_MIDDLE_FEATURES,
                                     GEN_LAYER_DEFS, Z_DIM)
-from repro_torch.optim.optimizers import adam
+from repro_torch.optim.optimizers import AdamState, adam
 from repro_torch.tree import tree_from_items, tree_items, tree_map
 
 _EMA_DECAY = 0.8                     # middle-activation EMA (stage 3 input)
@@ -82,12 +89,12 @@ class HuSCFConfig:
     use_kernel: bool = True          # kernels K1/K2 (the reference: False)
     steps_per_epoch: Optional[int] = None
     warmup_fed_rounds: int = 2       # vanilla FedAvg rounds (paper §4.5)
-    fused_epoch: bool = False        # True (the reference's default, a
-    #                                  scan-fused epoch) raises: the port's
-    #                                  epochs run step by step
+    fused_epoch: bool = True         # device-resident fused epochs (CUDA
+    #                                  graphs on the card); False = the
+    #                                  per-step loop (oracle)
     fused_cluster: bool = True       # False: host numpy stages 3+4
-    epoch_unroll: Optional[int] = None   # the reference's scan unroll of a
-    #                                  fused epoch; accepted, no effect here
+    epoch_unroll: Optional[int] = None   # steps per captured graph of a
+    #                                  fused epoch; None = 1
     cohort_size: Optional[int] = None        # clients sampled per round
     agg_chunk: Optional[int] = None          # chunk-streamed aggregation
     reoptimize_every: Optional[int] = None   # re-cut every this many
@@ -98,15 +105,21 @@ class HuSCFConfig:
 
 
 def _check_supported(cfg: HuSCFConfig) -> None:
-    if cfg.fused_epoch:
-        raise NotImplementedError("fused epochs are not ported: the port "
-                                  "runs its epochs step by step (ROADMAP, "
-                                  "\"Training step as a CUDA graph\")")
     if not cfg.split_program:
         raise NotImplementedError("split_program=False, the reference's "
                                   "legacy hand-rolled per-group loop "
                                   "(build_net_apply_legacy), is not ported: "
                                   "the port runs the compiled SplitProgram")
+
+
+def _fits(buf: torch.Tensor, x) -> bool:
+    """``x`` can be copied into the carry tensor ``buf``: a tensor of the
+    same shape, dtype and device, or an int for a 0-dim integer one."""
+    if not isinstance(x, torch.Tensor):
+        return isinstance(x, (int, np.integer)) and buf.dim() == 0 and \
+            not buf.is_floating_point()
+    return (x.shape == buf.shape and x.dtype == buf.dtype
+            and x.device == buf.device)
 
 
 def _host(mask: Optional[torch.Tensor]) -> Optional[np.ndarray]:
@@ -121,6 +134,16 @@ def merge_bn(updated: Dict, bn: Dict) -> Dict:
                     not isinstance(v, dict) else merge_bn(v, bn.get(k, {})))
                 for k, v in updated.items()}
     return updated
+
+
+def merge_bn_(params: Dict, bn: Dict) -> None:
+    """``merge_bn`` in place: the forward pass's BatchNorm running
+    statistics are copied into ``params``' own tensors."""
+    for k, v in params.items():
+        if isinstance(v, dict):
+            merge_bn_(v, bn.get(k, {}))
+        elif k in ("mean", "var") and k in bn:
+            v.copy_(bn[k])
 
 
 def _is_stat(path) -> bool:
@@ -142,12 +165,203 @@ def value_and_grad(loss_fn: Callable, params: Dict):
     return loss.detach(), aux, grads
 
 
+# ---------------------------------------------------------------------------
+# the fused epoch
+# ---------------------------------------------------------------------------
+
+def _carry_items(state: Dict[str, Any]) -> List[Tuple[Tuple[str, ...], Any]]:
+    """(path, leaf) of every leaf a fused step writes: both nets'
+    parameters and BatchNorm statistics, and each Adam state's step and
+    moments. ``state["step"]`` is a host counter and not among them."""
+    items = []
+    for net in ("G", "D"):
+        items += [((net,) + p, x) for p, x in tree_items(state[net])]
+    for opt in ("opt_g", "opt_d"):
+        st = state[opt]
+        items.append(((opt, "step"), st.step))
+        for field in ("mu", "nu"):
+            items += [((opt, field) + p, x)
+                      for p, x in tree_items(getattr(st, field))]
+    return items
+
+
+def _state_from_carry(items, step: int) -> Dict[str, Any]:
+    """Inverse of ``_carry_items``, with the host step counter."""
+    t = tree_from_items(items)
+    return {"G": t["G"], "D": t["D"], "step": step,
+            **{opt: AdamState(t[opt]["step"], t[opt]["mu"], t[opt]["nu"])
+               for opt in ("opt_g", "opt_d")}}
+
+
+# one side stream per device for every trainer's warm-ups and captures:
+# cuBLAS keeps a workspace per (handle, stream) for the life of the
+# process, so a stream per trainer would leave one behind for each,
+# pinning whatever segment of device memory it landed in
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+class GraphPool:
+    """What the fused epochs of one trainer share on the card: the side
+    stream they warm up and capture on, the private memory pool of their
+    CUDA graphs, whether the eager warm-up step has run since the graphs
+    were last dropped, and the capture seconds and pool bytes so far
+    (the device memory the captures reserved)."""
+
+    def __init__(self, device: torch.device):
+        index = torch.device(device).index or 0
+        if index not in _CAPTURE_STREAMS:
+            _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+        self.stream = _CAPTURE_STREAMS[index]
+        self.clear()
+
+    def clear(self) -> None:
+        """Forget the pool and the warm-up; the graphs themselves belong
+        to the epoch functions, which the trainer drops beside."""
+        self.pool = None
+        self.warm = False
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+        self.graphs = 0
+
+    def warm_up(self, step: Callable[[], None]) -> None:
+        """One eager step on the capture stream: a real step, and the
+        warm-up that initialises what cuDNN, cuBLAS and autograd create
+        lazily before a capture may run them."""
+        s, cur = self.stream, torch.cuda.current_stream(self.stream.device)
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            step()
+        cur.wait_stream(s)
+        self.warm = True
+
+    def capture(self, run: Callable[[], None],
+                gen: torch.Generator) -> "torch.cuda.CUDAGraph":
+        """``run`` captured as a CUDA graph in the shared pool, with
+        ``gen`` registered so that each replay advances it as running
+        ``run`` eagerly would. A capture that fails raises."""
+        g = torch.cuda.CUDAGraph()
+        g.register_generator_state(gen)
+        dev = self.stream.device
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(g, pool=self.pool, stream=self.stream):
+            run()
+        torch.cuda.synchronize(dev)
+        self.capture_s += time.perf_counter() - t0
+        self.pool_bytes += torch.cuda.memory_reserved(dev) - before
+        self.graphs += 1
+        if self.pool is None:
+            self.pool = g.pool()
+        return g
+
+    @staticmethod
+    def replay(graphs: Sequence[Any]) -> None:
+        """Replay ``graphs`` in order, with every host synchronisation an
+        error (torch's sync debug mode) while they are launched."""
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for g in graphs:
+                g.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+
+def make_epoch_fn(groups: Sequence[ProfileGroup], step_core: Callable,
+                  sample: Callable, n_steps: int, unroll: int = 1,
+                  graphs: Optional[GraphPool] = None) -> Callable:
+    """The fused epoch (the reference's ``make_epoch_fn``), shared by the
+    trainer's card and CPU paths.
+
+    ``step_core(state, batch) -> (metrics, mids)`` runs one training step
+    in place on ``state``'s tensors, with ``mids`` the per-group ``[K_p,
+    F]`` middle-activation batch means; ``sample(gen) -> batch``. Returns
+    ``epoch(state, gen, ema, ema_init, losses) -> losses`` over the carry
+    ``(state, gen, mid_ema [K, F], ema_init)``: each of the ``n_steps``
+    steps draws a batch from ``gen``, runs ``step_core``, writes each
+    group's EMA rows (the first observation copies, later ones blend,
+    under the 0-dim device bool ``ema_init``, which it then sets) and
+    copies its metrics into the 0-dim tensors of ``losses``. Nothing is
+    read back.
+
+    Without ``graphs`` the steps run eagerly one after another: the plain
+    version of the graph (the CPU path). With a ``GraphPool`` (the card)
+    the first step after the pool was cleared runs eagerly as its
+    warm-up; the rest run as replays of CUDA graphs of ``unroll`` steps
+    each, a remainder in a graph of its own, each captured on its first
+    use. A graph reads and writes the tensors it was captured on, so
+    every later call must pass the same carry: another raises.
+    """
+    unroll = max(1, min(n_steps, unroll))
+    rows: Dict[str, torch.Tensor] = {}
+    captured: Dict[int, Any] = {}
+    carry_ref: List[Any] = []
+
+    def body(state, gen, ema, ema_init, losses):
+        metrics, mids = step_core(state, sample(gen))
+        for g in groups:
+            m = mids[g.name].detach().float()
+            prev = ema.index_select(0, rows[g.name])
+            ema.index_copy_(0, rows[g.name], torch.where(
+                ema_init, _EMA_DECAY * prev + (1 - _EMA_DECAY) * m, m))
+        ema_init.fill_(True)
+        for k, v in metrics.items():
+            losses[k].copy_(v)
+
+    def epoch(state, gen, ema, ema_init, losses):
+        if not rows:
+            rows.update({g.name: torch.as_tensor(g.client_ids,
+                                                 device=ema.device)
+                         for g in groups})
+        args = (state, gen, ema, ema_init, losses)
+        if graphs is None:
+            for _ in range(n_steps):
+                body(*args)
+            return losses
+        carry = [x for _, x in _carry_items(state)] + [ema, ema_init, gen,
+                                                        *losses.values()]
+        if carry_ref and (len(carry) != len(carry_ref) or any(
+                a is not b for a, b in zip(carry, carry_ref))):
+            raise RuntimeError("a fused epoch's CUDA graphs were captured "
+                               "on other tensors than this carry")
+        left = n_steps
+        if not graphs.warm:
+            graphs.warm_up(lambda: body(*args))
+            left -= 1
+        sizes = [unroll] * (left // unroll) + (
+            [left % unroll] if left % unroll else [])
+        for k in sizes:
+            if k not in captured:
+                carry_ref[:] = carry
+                captured[k] = graphs.capture(
+                    lambda k=k: [body(*args) for _ in range(k)], gen)
+        graphs.replay([captured[k] for k in sizes])
+        return losses
+
+    return epoch
+
+
 class HuSCFTrainer:
     """End-to-end HuSCF-GAN over a client population.
 
     ``batch_source``: optional callable returning the next training
     batch ({"real_img", "real_y", "z", "fake_y"} -> {gname: tensor});
     without it batches are drawn on the device from the staged dataset.
+    A host callable cannot be replayed, so on the card it needs
+    ``fused_epoch=False``.
+
+    Fused epochs (``cfg.fused_epoch``, the default) run ``make_epoch_fn``
+    over the trainer's carry: the state's tensors, the middle-activation
+    EMA, a device flag for the EMA's first observation and the training
+    generator. Every step writes into the same tensors; before each
+    epoch a leaf replaced from outside (a federation round, a checkpoint
+    load, an assignment) is copied into its tensor, and a regroup drops
+    the captured graphs. On the card an epoch is replays of CUDA graphs
+    of ``cfg.epoch_unroll`` steps (default 1) after one eager warm-up
+    step; on the CPU the same steps run eagerly. The losses are read
+    back once per epoch. ``cfg.fused_epoch=False`` runs the per-step
+    loop, the oracle.
     """
 
     def __init__(self, clients: Sequence[ClientSpec],
@@ -197,6 +411,9 @@ class HuSCFTrainer:
         self.sizes = np.array([c.n for c in self.clients], np.int64)
 
         self._opt_init, self._opt_update = adam(config.lr, b1=config.adam_b1)
+        self._epoch_fns: Dict[int, Callable] = {}
+        self._graph_pool = (GraphPool(self.device)
+                            if self.device.type == "cuda" else None)
         self.state = self._init_state(
             torch.Generator().manual_seed(config.seed))
         self._dataset = stage_clients(self.groups, self.clients, self.device)
@@ -217,7 +434,14 @@ class HuSCFTrainer:
         self._searchers: Dict = {}
         self._mid_ema = torch.zeros((K, DISC_MIDDLE_FEATURES),
                                     dtype=torch.float32, device=self.device)
-        self._ema_init = False
+        self._ema_init = False           # host mirror of the device flag
+        # the fused epoch's own carry: the EMA's device flag, the last
+        # step's losses, and the fixed tensors its steps write into
+        self._ema_flag = torch.zeros((), dtype=torch.bool, device=self.device)
+        self._losses = {k: torch.zeros((), device=self.device)
+                        for k in ("loss_d", "loss_g")}
+        self._carry: Optional[List] = None
+        self._carry_inputs: Tuple = ()
         self._sizes_dev = torch.as_tensor(self.sizes, dtype=torch.float32,
                                           device=self.device)
         self._rows = {g.name: torch.as_tensor(g.client_ids, device=self.device)
@@ -251,8 +475,14 @@ class HuSCFTrainer:
                                   for l in list(range(h)) + list(range(t, n))}
             params[net] = {"client": client, "server": server}
         return {"G": params["G"], "D": params["D"],
-                "opt_g": self._opt_init(params["G"]),
-                "opt_d": self._opt_init(params["D"]), "step": 0}
+                "opt_g": self._init_opt(params["G"]),
+                "opt_d": self._init_opt(params["D"]), "step": 0}
+
+    def _init_opt(self, params) -> AdamState:
+        """Adam's state with its step on the device, so that the bias
+        corrections need no host value."""
+        return self._opt_init(params)._replace(
+            step=torch.zeros((), dtype=torch.int32, device=self.device))
 
     # -- one training step ----------------------------------------------------
     def _mean_client_loss(self, logits: Dict[str, torch.Tensor],
@@ -264,9 +494,13 @@ class HuSCFTrainer:
                                        target) * g.size
         return tot / total
 
-    def _step(self, batch: Dict[str, Dict[str, torch.Tensor]]):
+    def _step(self, st: Dict[str, Any], batch: Dict[str, Dict[str, Any]],
+              inplace: bool = False):
+        """One D then G update from ``st`` on ``batch``: returns (the new
+        state, the losses, the middle activations). ``inplace`` writes
+        the new parameters, statistics, moments and steps into ``st``'s
+        own tensors, one leaf at a time, and returns ``st``."""
         groups = self.groups
-        st = self.state
         g_params, d_params = st["G"], st["D"]
         gen_in = {g.name: (batch["z"][g.name], batch["fake_y"][g.name])
                   for g in groups}
@@ -290,9 +524,14 @@ class HuSCFTrainer:
             return loss, ({"client": ncr, "server": nsr}, mids)
 
         loss_d, (d_bn, mids), grads_d = value_and_grad(d_loss, d_params)
-        opt_d, d_new = self._opt_update(st["opt_d"], grads_d, d_params)
+        opt_d, d_new = self._opt_update(st["opt_d"], grads_d, d_params,
+                                        inplace=inplace)
+        del grads_d
         # keep BatchNorm running stats from the real-data pass
-        d_new = merge_bn(d_new, d_bn)
+        if inplace:
+            merge_bn_(d_new, d_bn)
+        else:
+            d_new = merge_bn(d_new, d_bn)
 
         # ---------------- generator update (vs updated D)
         def g_loss(g_p):
@@ -306,25 +545,105 @@ class HuSCFTrainer:
                     {"client": ncg, "server": nsg})
 
         loss_g, g_bn, grads_g = value_and_grad(g_loss, g_params)
-        opt_g, g_new = self._opt_update(st["opt_g"], grads_g, g_params)
+        opt_g, g_new = self._opt_update(st["opt_g"], grads_g, g_params,
+                                        inplace=inplace)
+        del grads_g
+        metrics = {"loss_d": loss_d, "loss_g": loss_g}
+        if inplace:
+            merge_bn_(g_new, g_bn)
+            return st, metrics, mids
         g_new = merge_bn(g_new, g_bn)
+        return ({"G": g_new, "D": d_new, "opt_g": opt_g, "opt_d": opt_d,
+                 "step": st["step"] + 1}, metrics, mids)
 
-        self.state = {"G": g_new, "D": d_new, "opt_g": opt_g, "opt_d": opt_d,
-                      "step": st["step"] + 1}
-        return {"loss_d": loss_d, "loss_g": loss_g}, mids
-
-    def _next_batch(self):
+    def _sample(self, gen: torch.Generator):
+        """One training batch: the ``batch_source``'s next, else drawn on
+        the device from the staged dataset with ``gen``."""
         if self._batch_source is not None:
             return self._batch_source()
-        return sample_batch(self._dataset, self._train_gen,
-                            batch=self.cfg.batch, z_dim=Z_DIM,
-                            num_classes=gan.NUM_CLASSES)
+        return sample_batch(self._dataset, gen, batch=self.cfg.batch,
+                            z_dim=Z_DIM, num_classes=gan.NUM_CLASSES)
+
+    # -- the fused epoch -----------------------------------------------------
+    def _build_epoch(self, n_steps: int) -> Callable:
+        # the epoch lives in self._epoch_fns, so it holds the trainer
+        # weakly: a cycle would keep the state and the graphs' pool on
+        # the card until the garbage collector found it
+        me = weakref.proxy(self)
+        return make_epoch_fn(
+            self.groups, lambda st, b: me._step(st, b, inplace=True)[1:],
+            lambda gen: me._sample(gen), n_steps,
+            unroll=self.cfg.epoch_unroll or 1, graphs=self._graph_pool)
+
+    def _drop_graphs(self) -> None:
+        """Everything captured on the old carry or grouping goes: the
+        epoch functions with their graphs, the pool and the warm-up (the
+        reference's ``_epoch_fns.clear()``)."""
+        self._epoch_fns.clear()
+        self._carry = None
+        if self._graph_pool is not None:
+            self._graph_pool.clear()
+
+    def _adopt_carry(self) -> None:
+        """Make the trainer's own tensors the state's leaves and the EMA,
+        the fixed tensors that fused steps write into. A leaf replaced
+        since the last fused epoch with the same shape and dtype is
+        copied into its tensor; a new structure, or new data, rows or
+        generator, makes copies of the current leaves the carry and
+        drops the graphs. Tensors a caller handed in are never written."""
+        items = _carry_items(self.state) + [(("ema",), self._mid_ema)]
+        inputs = (self._dataset, self._rows, self._train_gen)
+        carry = self._carry
+        if carry is None or len(carry) != len(items) or any(
+                a is not b for a, b in zip(inputs, self._carry_inputs)) \
+                or not all(p == q and _fits(buf, x)
+                           for (p, buf), (q, x) in zip(carry, items)):
+            self._drop_graphs()
+            carry = [(p, torch.full((), x, dtype=torch.int32,
+                                    device=self.device)
+                      if not isinstance(x, torch.Tensor)
+                      else x.clone(memory_format=torch.contiguous_format))
+                     for p, x in items]
+            self._carry, self._carry_inputs = carry, inputs
+        else:
+            for (_, buf), (_, x) in zip(carry, items):
+                if x is not buf:
+                    if isinstance(x, torch.Tensor):
+                        buf.copy_(x)
+                    else:
+                        buf.fill_(x)
+        self.state = _state_from_carry(carry[:-1], self.state["step"])
+        self._mid_ema = carry[-1][1]
+
+    def _fused_epoch(self, n_steps: int) -> Dict[str, torch.Tensor]:
+        """One fused epoch of ``n_steps``, nothing read back: returns the
+        last step's losses as 0-dim device tensors."""
+        if self._graph_pool is not None and self._batch_source is not None:
+            raise ValueError("a batch_source is a host callable and cannot "
+                             "be replayed in a CUDA graph: pass "
+                             "fused_epoch=False to train from it on the card")
+        self._adopt_carry()
+        fn = self._epoch_fns.get(n_steps)
+        if fn is None:
+            fn = self._epoch_fns[n_steps] = self._build_epoch(n_steps)
+        self._ema_flag.fill_(self._ema_init)
+        fn(self.state, self._train_gen, self._mid_ema, self._ema_flag,
+           self._losses)
+        self._ema_init = True
+        self.state["step"] += n_steps
+        return self._losses
 
     # -- public API ----------------------------------------------------------
     def train_steps(self, n_steps: int) -> Dict[str, float]:
+        if self.cfg.fused_epoch:
+            losses = self._fused_epoch(n_steps)
+            # the epoch's one readback
+            return dict(zip(losses, torch.stack(list(losses.values()))
+                            .tolist()))
         metrics = {}
         for _ in range(n_steps):
-            metrics, mids = self._step(self._next_batch())
+            self.state, metrics, mids = self._step(
+                self.state, self._sample(self._train_gen))
             # middle-activation EMA, one [K, F] row per global client
             for g in self.groups:
                 m = mids[g.name].detach().float()
@@ -663,8 +982,8 @@ class HuSCFTrainer:
                 "server": self._migrate_server_params(net, new_groups)}
         # Adam's moments restart for the migrated structure; the step
         # counter survives
-        new_state["opt_g"] = self._opt_init(new_state["G"])
-        new_state["opt_d"] = self._opt_init(new_state["D"])
+        new_state["opt_g"] = self._init_opt(new_state["G"])
+        new_state["opt_d"] = self._init_opt(new_state["D"])
         new_state["step"] = self.state["step"]
         # the EMA is indexed by global client: survivors keep their rows
         # under the new ids, joiners start from the survivor mean once
@@ -694,6 +1013,7 @@ class HuSCFTrainer:
         self._rows = {g.name: self._index(g.client_ids) for g in self.groups}
         # everything keyed on the old grouping is stale
         self._fed_plans.clear()
+        self._drop_graphs()
         self._gen_apply = make_apply(compile_split_program(self.groups, "G"))
         self._disc_apply = make_apply(compile_split_program(self.groups, "D"),
                                       capture_middle=True)

@@ -18,9 +18,12 @@ population on one device, with the flags and the printed lines of
 ``--device`` picks the device (default ``cuda``; asking for it on a
 machine without CUDA raises). Kernels K1/K2 are on by default
 (``--no-use-kernel`` runs their plain expressions). Float32 products
-and convolutions run in full float32: TF32 is switched off. Epochs run
-step by step, as the reference's ``--per-step`` runs them; the flag is
-accepted and changes nothing.
+and convolutions run in full float32: TF32 is switched off. Epochs are
+fused, as in the reference (``HuSCFConfig.fused_epoch``): on the card
+each epoch is replays of a CUDA graph of the training step, with the
+batches drawn on the device and the losses read back once; the launcher
+prints ``fused epochs``. ``--per-step`` runs the per-step loop, the
+reference's oracle, and prints ``per-step epochs``.
 
 Population scale: ``--cohort S`` samples S clients per federation
 round, ``--agg-chunk c`` streams every aggregation in chunks of c
@@ -75,6 +78,7 @@ def train_huscf_gan(args):
                                          federate_every=args.federate_every,
                                          seed=args.seed,
                                          use_kernel=args.use_kernel,
+                                         fused_epoch=not args.per_step,
                                          cohort_size=args.cohort,
                                          agg_chunk=args.agg_chunk,
                                          reoptimize_every=(
@@ -86,7 +90,8 @@ def train_huscf_gan(args):
     reopt = (f", re-cut every {args.reoptimize_every} rounds"
              if args.reoptimize_every else "")
     print(f"[train] GA latency model: {tr.ga_latency:.2f}s/iter, "
-          f"{len(tr.groups)} profile groups, mesh=1dev, per-step epochs, "
+          f"{len(tr.groups)} profile groups, mesh=1dev, "
+          f"{'per-step' if args.per_step else 'fused'} epochs, "
           f"{agg} aggregation, {part}{reopt}")
     for ep in range(args.epochs):
         t0 = time.time()
@@ -186,8 +191,8 @@ def main(argv=None, params=None):
                          "k-means assignment (default on)")
     ap.add_argument("--fed-devices", type=int, default=None)
     ap.add_argument("--per-step", action="store_true",
-                    help="per-step epochs (the reference's oracle loop); "
-                         "the port's epochs run step by step either way")
+                    help="per-step epochs (the oracle loop) instead of "
+                         "fused ones")
     ap.add_argument("--cohort", type=int, default=None,
                     help="sample this many clients per federation round "
                          "(default: full participation)")

@@ -20,6 +20,8 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch import resolve_device
+
 NEG_INF = -1e30
 
 
@@ -186,7 +188,8 @@ class KVCache:
 
     @staticmethod
     def zeros(batch: int, s_max: int, n_kv: int, head_dim: int,
-              dtype=torch.bfloat16, device="cpu") -> "KVCache":
+              dtype=torch.bfloat16, device="cuda") -> "KVCache":
+        device = resolve_device(device)
         shape = (batch, s_max, n_kv, head_dim)
         return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros(shape, dtype=dtype, device=device), 0)

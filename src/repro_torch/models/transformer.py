@@ -211,7 +211,8 @@ def _attn_cache_len(cfg: ArchConfig, kind: str, ctx_len: int,
 
 def init_cache_entry(cfg: ArchConfig, kind: str, batch: int, ctx_len: int,
                      *, margin: int = 16, force_window: Optional[int] = None,
-                     device="cpu", lead: Tuple[int, ...] = ()) -> Params:
+                     device="cuda", lead: Tuple[int, ...] = ()) -> Params:
+    device = resolve_device(device)
     hd = cfg.resolved_head_dim
     d_rnn = cfg.d_rnn or cfg.d_model
     lead = tuple(lead)
@@ -505,7 +506,8 @@ def make_train_step(cfg: ArchConfig, optimizer,
 
 def init_cache(cfg: ArchConfig, batch: int, ctx_len: int, *,
                margin: int = 16, force_window: Optional[int] = None,
-               device="cpu") -> Params:
+               device="cuda") -> Params:
+    device = resolve_device(device)
     n_super, rest = _pattern_split(cfg)
     scanned = {}
     for j, kind in enumerate(cfg.block_pattern):

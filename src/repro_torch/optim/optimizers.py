@@ -7,6 +7,12 @@ gradients are zero, so they come back unchanged and the trainer puts
 the forward pass's statistics back afterwards. Eps sits outside
 ``sqrt(vhat)`` and the bias corrections use the float32 step, as in
 the reference.
+
+Adam's step is a Python int or a 0-dim integer tensor. With a tensor
+the bias corrections are computed on its device and nothing is read
+back, so the update can be captured in a CUDA graph; ``update(...,
+inplace=True)`` then writes the new moments, parameters and step into
+the given tensors, one leaf at a time.
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ from repro_torch.tree import tree_map
 
 
 class AdamState(NamedTuple):
-    step: int
+    step: Any                        # int, or a 0-dim integer tensor
     mu: Any
     nu: Any
 
@@ -41,16 +47,20 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                          params)
         return AdamState(0, zeros, tree_map(torch.clone, zeros))
 
-    def update(state: AdamState, grads, params):
+    def update(state: AdamState, grads, params, inplace: bool = False):
         scale = None
         if grad_clip is not None:
             gn = global_norm(grads)
             scale = torch.clamp(grad_clip / (gn + 1e-9), max=1.0)
         step = state.step + 1
         lr_t = lr_fn(step)
-        step_f = torch.tensor(step, dtype=torch.float32)
-        bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** step_f)
-        bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** step_f)
+        on_device = isinstance(step, torch.Tensor)
+        step_f = (step.float() if on_device
+                  else torch.tensor(step, dtype=torch.float32))
+        bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** step_f
+        bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** step_f
+        if not on_device:
+            bc1, bc2 = float(bc1), float(bc2)
 
         def upd(p, g, m, v):
             g = g.float()
@@ -63,6 +73,14 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                 delta = delta + weight_decay * p.float()
             return m, v, (p.float() - lr_t * delta).to(p.dtype)
 
+        if inplace:
+            def upd_(p, g, m, v):
+                for buf, new in zip((m, v, p), upd(p, g, m, v)):
+                    buf.copy_(new)
+
+            tree_map(upd_, params, grads, state.mu, state.nu)
+            state.step.copy_(step)
+            return state, params
         out = tree_map(upd, params, grads, state.mu, state.nu)
         return (AdamState(step, tree_map(lambda t: t[0], out),
                           tree_map(lambda t: t[1], out)),

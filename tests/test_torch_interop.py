@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 
@@ -167,11 +168,11 @@ def test_config_takes_the_reference_fields():
     cfg = thuscf.HuSCFConfig(fused_epoch=False, epoch_unroll=4,
                              split_program=True)
     thuscf._check_supported(cfg)
-    assert thuscf.HuSCFConfig().fused_epoch is False
+    assert thuscf.HuSCFConfig().fused_epoch is True
+    assert jhuscf.HuSCFConfig().fused_epoch is True
 
 
 @pytest.mark.parametrize("field,value,match", [
-    ("fused_epoch", True, "CUDA graph"),
     ("split_program", False, "legacy hand-rolled")])
 def test_config_values_the_port_cannot_honour_raise(field, value, match):
     clients = tpart.build_scenario("2dom_noniid", num_clients=2,
