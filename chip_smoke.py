@@ -56,6 +56,31 @@ Phases (any failure exits non-zero and prints no result):
      server copies and EMA rows bit for bit, means within 1e-6), zeroes
      Adam's moments and keeps the step, empties the plan cache, and the
      round after it launches K1 and K2 and fills the cache again;
+  3d. the legacy executor (``run_legacy``): the slice's trainer on the
+     launcher's cuts with ``HuSCFConfig(split_program=False)`` (the
+     reference's hand-rolled per-group loops, ``build_net_apply_legacy``)
+     on fused epochs, 6 epochs with a federation every 2, the counts of
+     K1/K2 set to 0 just before and read just after (both must launch):
+     its losses and parameters within 2 lr times ``adam_bound`` of the
+     program executor's run from the same seed (the launcher's trainer,
+     copied right after its run); one forward of each net through both
+     executors bit for bit (cuDNN's deterministic algorithms, for that
+     check only); a replayed legacy epoch under
+     ``set_sync_debug_mode("error")``; the legacy graphs against the
+     legacy step loop (``graph_vs_loop``); ``fedavg_uniform(fused=False)``
+     (K1's S = 1 entry point per layer and leaf) within K1_RTOL of the
+     fused FedAvg; both executors' capture seconds, epoch seconds on
+     graphs and on the loop (in turns: program, legacy, legacy,
+     program) and device kernels per step of a profiled graph epoch;
+  3e. the no-concat server schedule (``check_no_concat``): one
+     training-mode forward and backward of each net at the slice's
+     groups, batch 16, with ``concat_groups=False`` through the program's
+     executor and through the legacy loops, bit for bit (loss, outputs,
+     middles, updated leaves, gradients; deterministic cuDNN); the
+     server's BatchNorm statistics differ from the concat schedule's
+     exactly where a layer has more than one active group; both
+     schedules' forward and backward timed and their device kernels
+     counted;
   4b. the population: ``train.main`` with --clients 512 --cohort 128
      --agg-chunk 64 --epochs 4 --federate-every 1 --base-size 24 (one
      step per epoch; two chunked cohort FedAvg rounds, then two chunked
@@ -124,6 +149,12 @@ Phases (any failure exits non-zero and prints no result):
      smoke config (float32) on the card against the CPU: forward logits,
      prefill logits and cache, 2 decode steps (1e-4 of the largest). The
      LM path runs none of K1-K4 (plain attention, as in the reference);
+  4e. the example twins (``run_examples``): ``examples/torch_quickstart.py``
+     (6 clients, base size 96, 4 epochs; its last round clustered, with
+     K1/K2 launched), ``torch_multi_domain_comparison.py --epochs 2``,
+     ``torch_serve_lm.py`` and ``torch_split_lm_training.py`` at their
+     defaults, each through ``main`` on the card, timed, every returned
+     number finite;
   5. GAN split serving: ``repro_torch.launch.serve_split.main --mode gan``
      at full width on both profile mixes (24 requests each); the images
      are finite, in the tanh range and equal each client's monolithic
@@ -163,7 +194,8 @@ Phases (any failure exits non-zero and prints no result):
      batch 8 and 1), then one epoch and one clustered
      round of the slice's trainer, and profiles one epoch (device busy
      share, the kernels that take the time);
-  9. prints a JSON line with the slice's times, the ``population``
+  9. prints a JSON line with the slice's times (with the ``legacy`` and
+     ``no_concat`` phases), the ``examples`` line, the ``population``
      line, one with the serving times (``serve``), the ``recut`` line
      (the search, the 8-client re-cut and churn, the population's churn
      and its stage-1 search seconds), the ``quality`` line (per
@@ -171,8 +203,8 @@ Phases (any failure exits non-zero and prints no result):
      epochs, steps and the per-domain metrics; the cuts in
      ``reduced``), the ``lm`` line (the card's name and power limit, then
      the phase 4d numbers), one with the kernels (K1 and K2 with their
-     population shapes, launches and the re-cut and quality runs'
-     launches), then the result line.
+     population shapes, launches and the re-cut, quality and legacy
+     runs' launches), then the result line.
 
 Float32 products and convolutions run in full float32 (TF32 off).
 """
@@ -2630,6 +2662,378 @@ def check_fused_epoch(tr, ckpt: str, device: str = "cuda") -> dict:
     return out
 
 
+# the slice's launcher settings (``launch.train``'s defaults with
+# --epochs 6 --federate-every 2), for trainers the smoke builds itself
+SLICE_CLIENTS, SLICE_BASE_SIZE, SLICE_BATCH = 8, 128, 16
+SLICE_EPOCHS, SLICE_FED_EVERY = 6, 2
+
+
+def slice_trainer(cuts, split_program: bool, device: str = "cuda"):
+    """The slice's trainer as the launcher builds it (scenario
+    ``2dom_noniid``, ``PAPER_DEVICES[i % 7]``, seed 0), on given cuts
+    (the GA's, so no search runs again), with ``split_program``."""
+    from repro_torch.core.huscf import HuSCFConfig, HuSCFTrainer
+    from repro_torch.core.latency import PAPER_DEVICES
+    from repro_torch.data.partition import build_scenario
+    clients = build_scenario("2dom_noniid", num_clients=SLICE_CLIENTS,
+                             base_size=SLICE_BASE_SIZE, seed=0)
+    devices = [PAPER_DEVICES[i % 7] for i in range(SLICE_CLIENTS)]
+    return HuSCFTrainer(clients, devices, cuts=cuts, device=device,
+                        config=HuSCFConfig(batch=SLICE_BATCH,
+                                           federate_every=SLICE_FED_EVERY,
+                                           seed=0,
+                                           split_program=split_program))
+
+
+def time_executors(trainers: dict) -> dict:
+    """Per named trainer (one per executor), from its current state: the
+    capture seconds of its fused epoch's graphs; one epoch's wall time
+    on graphs and on the step loop, the trainers in turns (a, b, b, a)
+    for each path; and a fused epoch of one step, one replay of its
+    graph, profiled (device kernels and host launch calls per step, busy
+    share). Each state is put back."""
+    import numpy as np
+    import torch
+    out, snaps = {}, {}
+    for name, tr in trainers.items():
+        steps = max(1, int(np.median(tr.sizes)) // tr.cfg.batch)
+        snaps[name] = snapshot(tr)
+        tr._drop_graphs()
+        restore(tr, snaps[name])
+        warm_graphs(tr, steps)
+        torch.cuda.synchronize()
+        out[name] = {"steps": steps, "capture_s": tr._graph_pool.capture_s,
+                     "pool_bytes": tr._graph_pool.pool_bytes,
+                     "epoch_s": {"graph": [], "loop": []}}
+    names = list(trainers)
+    for fused, path in ((True, "graph"), (False, "loop")):
+        for name in names + names[::-1]:
+            tr = trainers[name]
+            restore(tr, snaps[name])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_steps(tr, fused, out[name]["steps"])
+            out[name]["epoch_s"][path].append(time.perf_counter() - t0)
+    for name, tr in trainers.items():
+        restore(tr, snaps[name])
+        tr.train_steps(1)            # a fused epoch of one step: its graph
+        prof = device_profile(lambda: tr.train_steps(1))
+        out[name].update(kernels_per_step_graph=prof["kernels"],
+                         host_launches_per_step_graph=prof["host_launches"],
+                         busy_share_graph=prof["busy_share"])
+        restore(tr, snaps[name])
+    return out
+
+
+def as_tree(x):
+    """Nested tuples, lists and dicts of tensors as nested dicts of
+    detached tensors (``tree_items`` walks dicts only)."""
+    if isinstance(x, (tuple, list)):
+        return {i: as_tree(v) for i, v in enumerate(x)}
+    if isinstance(x, dict):
+        return {k: as_tree(v) for k, v in x.items()}
+    return x.detach() if hasattr(x, "detach") else x
+
+
+def check_executors_bitexact(tr) -> None:
+    """One training-mode forward of each net from the trainer's state
+    through the compiled program's executor and the legacy loops, with
+    cuDNN's deterministic algorithms: every output, captured middle and
+    updated leaf bit for bit."""
+    import torch
+    from repro_torch.core.huscf import build_net_apply, build_net_apply_legacy
+    from repro_torch.tree import tree_items
+    torch.backends.cudnn.deterministic = True
+    try:
+        for net in ("G", "D"):
+            inputs = slice_inputs(tr, net)
+            runs = []
+            for build in (build_net_apply, build_net_apply_legacy):
+                apply = build(tr.groups, net, capture_middle=net == "D")
+                with torch.no_grad():
+                    runs.append(list(tree_items(as_tree(apply(
+                        tr.state[net]["client"], tr.state[net]["server"],
+                        inputs, True)))))
+            (a, b) = runs
+            if [p for p, _ in a] != [p for p, _ in b] or not all(
+                    same_bits(x, y) for (_, x), (_, y) in zip(a, b)):
+                raise AssertionError(f"{net}: the legacy executor's forward "
+                                     "differs from the program's")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    log("legacy vs program executor: one forward of G and D bit for bit")
+
+
+def slice_inputs(tr, net: str, batch: int = SLICE_BATCH, seed: int = 11):
+    """Seeded layer-0 inputs of ``net`` for every group of ``tr``."""
+    import torch
+    from repro_torch.models.gan import Z_DIM
+    gen = torch.Generator(device=tr.device).manual_seed(seed)
+    out = {}
+    for g in tr.groups:
+        shape = ((g.size, batch, Z_DIM) if net == "G"
+                 else (g.size, batch, 28, 28, 1))
+        out[g.name] = (torch.randn(shape, generator=gen, device=tr.device),
+                       torch.randint(0, 10, (g.size, batch), generator=gen,
+                                     device=tr.device))
+    return out
+
+
+def run_legacy(tr, ref: dict, device: str = "cuda") -> dict:
+    """Phase 3d (docstring): the slice with ``split_program=False`` on
+    fused epochs against the program's run from the same seed
+    (``ref``: its state and losses right after the launcher), then the
+    legacy graphs against the legacy step loop, a replayed epoch with
+    every host sync an error, the legacy S = 1 FedAvg, and the timings
+    of both executors."""
+    import numpy as np
+    import torch
+    from repro_torch.core.federation import N_LAYERS, fedavg_uniform
+    from repro_torch.kernels import kmeans_assign as km
+    from repro_torch.kernels import weighted_agg as wa
+    out = {"seconds": {}}
+    clock = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        out["seconds"][what] = now - clock[0]
+        clock[0] = now
+
+    wa.launches = 0
+    km.launches = 0
+    t0 = time.perf_counter()
+    lg = slice_trainer(tr.cuts, split_program=False, device=device)
+    for _ in range(SLICE_EPOCHS):
+        lg.train_epoch()
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["launches"] = {"clustered_agg": wa.launches,
+                       "kmeans_assign": km.launches}
+    out["rounds"] = [d["mode"] for d in lg.fed_log]
+    if out["rounds"] != [d["mode"] for d in tr.fed_log[:len(lg.fed_log)]] \
+            or "clustered" not in out["rounds"]:
+        raise AssertionError(f"legacy rounds {out['rounds']}")
+    for name, n in out["launches"].items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "legacy executor's path")
+    # cuDNN's weight gradients are not deterministic, so two runs drift
+    # apart as graph_vs_loop's do: the parameters by up to 2 lr times
+    # Adam's bound over every step, the losses as the graph epoch's
+    # after the first epoch (later ones follow a chaotic game: reported)
+    steps = max(1, int(np.median(lg.sizes)) // lg.cfg.batch)
+    tol = 2 * lg.cfg.lr * adam_bound(steps * SLICE_EPOCHS, lg.cfg.adam_b1)
+    dp = param_diff(lg.state, ref["state"])
+    dl = [max(abs(a[k] - b[k]) / abs(b[k]) for k in b)
+          for a, b in zip(lg.history, ref["losses"])]
+    if not (dp <= tol and dl[0] <= FUSED_LOSS_RTOL and all(
+            math.isfinite(v) for m in lg.history for v in m.values())):
+        raise AssertionError(f"legacy vs program trainer: params {dp} (tol "
+                             f"{tol}), losses rel by epoch {dl}")
+    out["vs_program"] = {"max_abs_dparam": dp, "tol": tol,
+                         "loss_rel_by_epoch": dl}
+    log(f"legacy trainer vs program trainer (one seed): max |dparam| "
+        f"{dp:.3e} (tol {tol:.3e}), losses rel by epoch "
+        f"{[f'{x:.2e}' for x in dl]}; launches {out['launches']}; rounds "
+        f"{out['rounds']}")
+
+    lap("train")
+    check_executors_bitexact(lg)
+    # a replayed legacy epoch dispatched with every host sync an error
+    warm_graphs(lg, steps)
+    without_sync(lambda: lg._fused_epoch(steps))
+    torch.cuda.synchronize()
+    out["graph_vs_loop"] = graph_vs_loop(lg, snapshot(lg), steps,
+                                         "legacy executor")
+    lap("checks")
+
+    # the legacy S = 1 FedAvg (K1's weighted_agg_flat per layer and leaf)
+    wrapped = {g.name: {net: lg.state[net]["client"][g.name]
+                        for net in ("G", "D")} for g in lg.groups}
+    rounds, launches, secs = {}, {}, {}
+    for fused in (True, False):
+        wa.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rounds[fused] = fedavg_uniform(lg.groups, wrapped, lg.sizes,
+                                       n_layers=N_LAYERS, use_kernel=True,
+                                       fused=fused, plan_cache={})
+        torch.cuda.synchronize()
+        secs[fused] = time.perf_counter() - t0
+        launches[fused] = wa.launches
+    worst = max_rel_diff(rounds[False], rounds[True])
+    if not worst <= K1_RTOL or launches[False] <= launches[True]:
+        raise AssertionError(f"legacy FedAvg vs fused FedAvg: {worst} (K1 "
+                             f"launches {launches})")
+    out["fedavg_legacy"] = {"max_rel_diff": worst,
+                            "k1_launches": launches[False],
+                            "fused_k1_launches": launches[True],
+                            "legacy_s": secs[False], "fused_s": secs[True]}
+    log(f"fedavg_uniform(fused=False) vs fused: max rel diff {worst:.3e}; "
+        f"K1 launches {launches[False]} vs {launches[True]}")
+    lap("fedavg")
+
+    # both executors' epochs, in turns on their own trainers
+    out["timing"] = time_executors({"program": tr, "legacy": lg})
+    log("executor timings: " + json.dumps(
+        {k: {f: v[f] for f in ("capture_s", "epoch_s",
+                               "kernels_per_step_graph")}
+         for k, v in out["timing"].items()}))
+    lap("timing")
+    lg._drop_graphs()
+    tr._drop_graphs()
+    return out
+
+
+def check_no_concat(tr) -> dict:
+    """Phase 3e (docstring): one training-mode forward and backward of
+    each net at the slice's groups, batch 16, with the no-concat server
+    schedule through the program's executor and through the legacy
+    loops: loss, outputs, middles, updated leaves and gradients bit for
+    bit (cuDNN's deterministic algorithms). The server's BatchNorm
+    statistics must differ from the concat schedule's where a layer has
+    more than one active group. Both schedules timed (CUDA events) and
+    profiled (device kernels per forward and backward)."""
+    import torch
+    from repro_torch.core.huscf import (build_net_apply,
+                                        build_net_apply_legacy,
+                                        value_and_grad)
+    from repro_torch.core.segments import compile_split_program
+    from repro_torch.tree import tree_items, tree_leaves
+    out = {}
+    for net in ("G", "D"):
+        inputs = slice_inputs(tr, net)
+        params = tr.state[net]
+
+        def fwd_bwd(apply):
+            def loss_fn(p):
+                res, nc, ns, mids = apply(p["client"], p["server"], inputs,
+                                          True)
+                loss = sum(y.float().mean() for y in res.values())
+                return loss, (res, nc, ns, mids)
+            return value_and_grad(loss_fn, params)
+
+        applies = {(build.__name__, concat): build(
+            tr.groups, net, capture_middle=net == "D",
+            concat_groups=concat)
+            for build, concat in ((build_net_apply, True),
+                                  (build_net_apply, False),
+                                  (build_net_apply_legacy, False))}
+        torch.backends.cudnn.deterministic = True
+        try:
+            runs = {key: fwd_bwd(apply) for key, apply in applies.items()}
+        finally:
+            torch.backends.cudnn.deterministic = False
+        a = list(tree_items(as_tree(runs["build_net_apply", False])))
+        b = list(tree_items(as_tree(runs["build_net_apply_legacy", False])))
+        if [p for p, _ in a] != [p for p, _ in b] or not all(
+                same_bits(x, y) for (_, x), (_, y) in zip(a, b)):
+            raise AssertionError(f"{net}: no-concat program vs legacy "
+                                 "forward/backward differ")
+        ns_concat = as_tree(runs["build_net_apply", True][1][2])
+        ns_ghost = as_tree(runs["build_net_apply", False][1][2])
+        differ = {}
+        for step in compile_split_program(tr.groups, net).steps:
+            stats = [(x, y) for (p, x), (_, y) in zip(
+                tree_items(ns_concat[str(step.layer)]),
+                tree_items(ns_ghost[str(step.layer)]))
+                if p[-1] in ("mean", "var")]
+            differ[step.layer] = not all(same_bits(x, y) for x, y in stats)
+            if stats and differ[step.layer] != (len(step.active) > 1):
+                raise AssertionError(
+                    f"{net} layer {step.layer} ({len(step.active)} active "
+                    f"groups): no-concat statistics differ from concat's: "
+                    f"{differ[step.layer]}")
+        if not any(differ.values()):
+            raise AssertionError(f"{net}: no server layer with two groups")
+        row = {"stats_differ_by_layer": differ,
+               "grad_leaves": len(tree_leaves(runs["build_net_apply",
+                                                   False][2]))}
+        for concat, name in ((True, "concat"), (False, "no_concat")):
+            fn = (lambda apply=applies["build_net_apply", concat]:
+                  fwd_bwd(apply))
+            row[f"{name}_ms"] = time_ms(fn, iters=10, warmup=2)
+            row[f"{name}_kernels"] = device_profile(fn)["kernels"]
+        out[net] = row
+        log(f"no-concat {net}: program vs legacy bit for bit; fwd+bwd "
+            f"{row['concat_ms']:.3f} ms concat vs {row['no_concat_ms']:.3f} "
+            f"ms no-concat; kernels {row['concat_kernels']} vs "
+            f"{row['no_concat_kernels']}")
+    return out
+
+
+def load_example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the example twins on the card: the quickstart and the LM twins at their
+# defaults, the comparison cut to 2 of its 6 epochs
+EXAMPLES = (("torch_quickstart", []),
+            ("torch_multi_domain_comparison", ["--epochs", "2"]),
+            ("torch_serve_lm", []),
+            ("torch_split_lm_training", []))
+
+
+def run_examples(device: str = "cuda") -> dict:
+    """Phase 4e (docstring): the four example twins through their
+    ``main``, each timed; every number they return finite; the
+    quickstart reaches a clustered round with K1 and K2 launched."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import kmeans_assign as km
+    from repro_torch.kernels import weighted_agg as wa
+
+    def finite(x) -> bool:
+        if isinstance(x, dict):
+            return all(finite(v) for v in x.values())
+        if isinstance(x, (list, tuple)):
+            return all(finite(v) for v in x if not isinstance(v, str))
+        if isinstance(x, np.ndarray):
+            return bool(np.isfinite(x).all())
+        return not isinstance(x, (int, float)) or math.isfinite(x)
+
+    out = {}
+    for name, argv in EXAMPLES:
+        wa.launches = 0
+        km.launches = 0
+        t0 = time.perf_counter()
+        res = load_example(name).main(argv + ["--device", device])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        row = {"argv": argv, "s": time.perf_counter() - t0,
+               "launches": {"clustered_agg": wa.launches,
+                            "kmeans_assign": km.launches}}
+        if not finite(res):
+            raise AssertionError(f"{name}: non-finite result {res}")
+        if name == "torch_quickstart":
+            if res["rounds"][-1] != "clustered" or min(
+                    row["launches"].values()) <= 0:
+                raise AssertionError(f"quickstart: rounds {res['rounds']}, "
+                                     f"launches {row['launches']}")
+            row.update({k: res[k] for k in (
+                "ga_latency", "groups", "rounds", "k", "silhouette",
+                "accuracy", "f1", "fpr", "score")})
+            row["last_losses"] = res["losses"][-1]
+        elif name == "torch_multi_domain_comparison":
+            row["rows"] = res
+        elif name == "torch_serve_lm":
+            row.update({k: res[k] for k in (
+                "arch", "prefill_s", "decode_s", "decode_tok_per_s",
+                "cache_tensors", "cache_mib")})
+            row["tokens_shape"] = list(res["tokens"].shape)
+        else:
+            row.update(losses=res["losses"],
+                       federated_at=res["federated_at"])
+        out[name] = row
+        log(f"example {name} {argv}: {row['s']:.1f}s")
+    return out
+
+
 def main() -> int:
     import torch
     t_start = time.perf_counter()
@@ -2671,6 +3075,8 @@ def main() -> int:
     torch.cuda.synchronize()
     slice_s = time.perf_counter() - t0
     counts = {"clustered_agg": wa.launches, "kmeans_assign": km.launches}
+    # the program executor's run, which the legacy executor's is held to
+    slice_ref = {"state": clone_state(tr.state), "losses": list(tr.history)}
     log(f"slice ran in {slice_s:.1f}s; launches {counts}; rounds "
         f"{[d['mode'] for d in tr.fed_log]}")
     for name, n in counts.items():
@@ -2693,13 +3099,23 @@ def main() -> int:
     population["phase_s"] = time.perf_counter() - t0
     pop_churn = population.pop("churn")
     quality = run_quality()
+    t0 = time.perf_counter()
+    legacy_run = run_legacy(tr, slice_ref)
+    del slice_ref
+    no_concat = check_no_concat(tr)
+    legacy_run["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    examples = run_examples()
+    examples["phase_s"] = time.perf_counter() - t0
     # the slice trainer's graphs hold a private pool that the LM phase's
     # 63 GiB peak needs room beside; they are captured again below
     tr._drop_graphs()
+    _free_cuda()
     lm = run_lm(train_main, lm_serve_main, smi)
     kernels = check_kernels(tr)
     for k in kernels:
         k["launches"] = counts[k["name"]]
+        k["legacy_launches"] = legacy_run["launches"][k["name"]]
         k["recut_launches"] = recut_slice["launches"][k["name"]]
         k["quality_launches"] = quality["huscf_launches"][k["name"]]
     kernels[0]["s1"]["launches"] = legacy["k1_launches"]
@@ -2744,7 +3160,10 @@ def main() -> int:
                    "legacy_oracle": legacy})
     timing["fused_epoch"] = check_fused_epoch(
         tr, os.path.join(ROOT, "build", "fused.ckpt"))
+    timing["no_concat"] = no_concat
+    timing["legacy"] = legacy_run
     print(json.dumps({"slice": timing}), flush=True)
+    print(json.dumps({"examples": examples}), flush=True)
     print(json.dumps({"population": population}), flush=True)
     print(json.dumps({"serve": {"gan": gan_serve, "lm": lm_serve}}),
           flush=True)

@@ -668,7 +668,7 @@ def _federate_client_params_legacy(
 def fedavg_uniform(groups: Sequence[ProfileGroup],
                    client_params: Dict[str, Dict[str, Dict[str, Any]]],
                    sizes: np.ndarray, n_layers: Dict[str, int] = None,
-                   use_kernel: bool = False,
+                   use_kernel: bool = False, fused: bool = True,
                    plan_cache: Optional[Dict] = None,
                    chunk_size: Optional[int] = None, mesh: Any = None,
                    cohort_mask: Optional[np.ndarray] = None
@@ -676,7 +676,9 @@ def fedavg_uniform(groups: Sequence[ProfileGroup],
     """Vanilla FedAvg (the warm-up rounds, paper §4.5): one global
     cluster, weights proportional to dataset size. With ``cohort_mask``
     the sizes renormalize over the cohort and non-members sit the round
-    out."""
+    out. ``fused=False`` runs the legacy per-layer loop of
+    ``federate_client_params`` (with ``use_kernel``, K1's S = 1 entry
+    point once per layer and leaf)."""
     _unsupported(mesh)
     sizes = np.asarray(sizes, np.float64)
     if cohort_mask is not None:
@@ -684,6 +686,6 @@ def fedavg_uniform(groups: Sequence[ProfileGroup],
     return federate_client_params(groups, client_params, sizes / sizes.sum(),
                                   np.zeros(len(sizes), np.int64),
                                   n_layers=n_layers, use_kernel=use_kernel,
-                                  plan_cache=plan_cache,
+                                  fused=fused, plan_cache=plan_cache,
                                   chunk_size=chunk_size,
                                   cohort_mask=cohort_mask)

@@ -12,7 +12,10 @@ Stage 2 runs as fused epochs by default (``make_epoch_fn``, the
 reference's ``fused_epoch``): every step writes into the trainer's own
 tensors and draws its batch on the device, and on the card an epoch is
 replays of a CUDA graph of the step; ``fused_epoch=False`` runs the
-per-step loop, the oracle.
+per-step loop, the oracle. Both nets run the executor of the compiled
+``SplitProgram`` (``build_net_apply``); ``split_program=False`` runs
+the reference's legacy per-group loops (``build_net_apply_legacy``),
+which issue the same layer calls and agree with it bit for bit.
 
 Stages 3 and 4 run on the device; with ``use_kernel`` (the default
 here) the assignment step of k-means is kernel K2 and every
@@ -62,7 +65,9 @@ from repro_torch.core.genetic import CutSearcher, GAConfig, optimize_cuts
 from repro_torch.core.latency import (Cut, DeviceProfile, PAPER_DEVICES,
                                       PAPER_SERVER, huscf_iteration_latency)
 from repro_torch.core.registry import ClientRegistry
-from repro_torch.core.segments import compile_split_program, make_apply
+from repro_torch.core.segments import (NET_LAYER_DEFS, compile_split_program,
+                                       head_pass, make_apply, server_pass,
+                                       tail_pass)
 from repro_torch.core.splitting import (ProfileGroup, client_owned_layers,
                                         group_by_profile, layer_pair,
                                         server_union_span)
@@ -100,16 +105,86 @@ class HuSCFConfig:
     reoptimize_every: Optional[int] = None   # re-cut every this many
     #                                  rounds (strictly better cuts only);
     #                                  None = static cuts (the paper)
-    split_program: bool = True       # False (the reference's legacy
-    #                                  hand-rolled loops) raises
+    split_program: bool = True       # False: the legacy hand-rolled
+    #                                  per-group loops
+    #                                  (build_net_apply_legacy), the
+    #                                  bit-exactness oracle
 
 
-def _check_supported(cfg: HuSCFConfig) -> None:
-    if not cfg.split_program:
-        raise NotImplementedError("split_program=False, the reference's "
-                                  "legacy hand-rolled per-group loop "
-                                  "(build_net_apply_legacy), is not ported: "
-                                  "the port runs the compiled SplitProgram")
+# ---------------------------------------------------------------------------
+# functional forward passes over the split topology
+# ---------------------------------------------------------------------------
+
+def build_net_apply(groups: Sequence[ProfileGroup], net: str,
+                    capture_middle: bool = False,
+                    concat_groups: bool = True) -> Callable:
+    """Returns ``apply(client_params, server_params, inputs, train) ->
+    (outputs {gname: [K, b, ...]}, new_client, new_server, middles)``
+    with ``inputs`` = {gname: tuple of per-client-stacked tensors fed to
+    layer 0}: the executor of the compiled ``SplitProgram``
+    (``core.segments.make_apply``)."""
+    return make_apply(compile_split_program(groups, net),
+                      capture_middle=capture_middle,
+                      concat_groups=concat_groups)
+
+
+def build_net_apply_legacy(groups: Sequence[ProfileGroup], net: str,
+                           capture_middle: bool = False,
+                           concat_groups: bool = True) -> Callable:
+    """``build_net_apply``'s contract without a ``SplitProgram``: the
+    reference's legacy hand-rolled per-group loops, which derive each
+    server layer's active groups and each group's departure inline from
+    the cuts. They issue the program executor's layer calls in the same
+    order, so the two agree bit for bit; this one is the oracle behind
+    ``HuSCFConfig.split_program=False``. ``concat_groups=False`` is the
+    no-concat server schedule (per-group BatchNorm statistics,
+    ``core.segments``)."""
+    defs = NET_LAYER_DEFS[net]
+    n = len(defs)
+    middle = n // 2
+    span = server_union_span(groups, net, n)
+
+    def apply(client_params, server_params, inputs, train: bool):
+        new_client = {g.name: dict(client_params[g.name]) for g in groups}
+        new_server = dict(server_params)
+        bufs: Dict[str, torch.Tensor] = {}
+        shapes: Dict[str, Tuple[int, int]] = {}
+        for g in groups:
+            h, _ = layer_pair(g.cut, net)
+            acts, upd = head_pass(defs, client_params[g.name],
+                                  inputs[g.name], h, train)
+            new_client[g.name].update(upd)
+            k, b = acts.shape[0], acts.shape[1]
+            shapes[g.name] = (k, b)
+            bufs[g.name] = acts.reshape((k * b,) + acts.shape[2:])
+        outs: Dict[str, torch.Tensor] = {}
+        middles: Dict[str, torch.Tensor] = {}
+        for l in span:
+            active = [g for g in groups
+                      if layer_pair(g.cut, net)[0] <= l
+                      < layer_pair(g.cut, net)[1]]
+            parts, new_server[str(l)] = server_pass(
+                defs[l], server_params[str(l)],
+                [bufs[g.name] for g in active], train, concat_groups)
+            for g, part in zip(active, parts):
+                bufs[g.name] = part
+                if capture_middle and l == middle:
+                    k, b = shapes[g.name]
+                    middles[g.name] = part.reshape(k, b, -1).float().mean(1)
+                if layer_pair(g.cut, net)[1] == l + 1:
+                    outs[g.name] = part
+        results: Dict[str, torch.Tensor] = {}
+        for g in groups:
+            _, t = layer_pair(g.cut, net)
+            k, b = shapes[g.name]
+            x = outs[g.name]
+            y, upd = tail_pass(defs, client_params[g.name],
+                               x.reshape((k, b) + x.shape[1:]), t, n, train)
+            new_client[g.name].update(upd)
+            results[g.name] = y
+        return results, new_client, new_server, middles
+
+    return apply
 
 
 def _fits(buf: torch.Tensor, x) -> bool:
@@ -334,8 +409,14 @@ def make_epoch_fn(groups: Sequence[ProfileGroup], step_core: Callable,
         for k in sizes:
             if k not in captured:
                 carry_ref[:] = carry
+                # the graph keeps the tensors it was captured on; so does
+                # its function, on its own copy of the state's dicts,
+                # which a caller may re-point later (federate assigns
+                # new client trees into them)
+                own = (_state_from_carry(_carry_items(state), state["step"]),
+                       *args[1:])
                 captured[k] = graphs.capture(
-                    lambda k=k: [body(*args) for _ in range(k)], gen)
+                    lambda k=k, own=own: [body(*own) for _ in range(k)], gen)
         graphs.replay([captured[k] for k in sizes])
         return losses
 
@@ -373,7 +454,6 @@ class HuSCFTrainer:
                  device="cuda",
                  batch_source: Optional[Callable[[], Dict]] = None,
                  fed_mesh: Any = None):
-        _check_supported(config)
         if fed_mesh is not None:
             raise NotImplementedError("mesh-sharded federation is not "
                                       "ported (ROADMAP M10, mesh code)")
@@ -447,9 +527,7 @@ class HuSCFTrainer:
         self._rows = {g.name: torch.as_tensor(g.client_ids, device=self.device)
                       for g in self.groups}
         self._fed_plans: Dict = {}
-        self._gen_apply = make_apply(compile_split_program(self.groups, "G"))
-        self._disc_apply = make_apply(compile_split_program(self.groups, "D"),
-                                      capture_middle=True)
+        self._build_applies()
         self.fed_round = 0
         self.epoch = 0
         self.history: List[Dict[str, float]] = []
@@ -1014,9 +1092,15 @@ class HuSCFTrainer:
         # everything keyed on the old grouping is stale
         self._fed_plans.clear()
         self._drop_graphs()
-        self._gen_apply = make_apply(compile_split_program(self.groups, "G"))
-        self._disc_apply = make_apply(compile_split_program(self.groups, "D"),
-                                      capture_middle=True)
+        self._build_applies()
+
+    def _build_applies(self) -> None:
+        """Both nets' executors for the current groups: the compiled
+        program, or with ``cfg.split_program=False`` the legacy loops."""
+        build = (build_net_apply if self.cfg.split_program
+                 else build_net_apply_legacy)
+        self._gen_apply = build(self.groups, "G")
+        self._disc_apply = build(self.groups, "D", capture_middle=True)
 
     # -- generation for evaluation ------------------------------------------
     def generate(self, n_per_client_batch: int, labels: np.ndarray

@@ -11,7 +11,11 @@ per-group client tails. ``make_apply`` executes it:
   with per-client weights, so their BatchNorm statistics are per
   client;
 * each server step concatenates the rows of every active group, in
-  group order, so server BatchNorm statistics span the population;
+  group order, so server BatchNorm statistics span the population
+  (``concat_groups=True``, the paper's Eq. 7 join); with
+  ``concat_groups=False`` each group runs through the shared server
+  weights on its own, so the statistics are per group ("ghost BN") and
+  the server's new running statistics are their equal-weight mean;
 * the captured middle is each client's batch mean of the middle
   layer's output, flattened in H, W, C order.
 
@@ -22,6 +26,7 @@ engine's bucket-padding rows cannot touch valid rows.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -101,9 +106,19 @@ def compile_split_program(groups: Sequence[ProfileGroup], net: str,
                     for n, (_, t) in zip(names, cuts)))
 
 
-def _client_pass(defs, params, x, start: int, stop: int, train: bool):
+def head_pass(defs, params, x, stop: int, train: bool):
+    """A client head: layers ``[0, stop)`` on the group's stacked
+    clients; returns (activations, {str(layer): new params})."""
     new = {}
-    for l in range(start, stop):
+    for l in range(stop):
+        x, new[str(l)] = defs[l].apply(params[str(l)], x, train)
+    return x, new
+
+
+def tail_pass(defs, params, x, start: int, n: int, train: bool):
+    """A client tail: layers ``[start, n)``, as ``head_pass``."""
+    new = {}
+    for l in range(start, n):
         x, new[str(l)] = defs[l].apply(params[str(l)], x, train)
     return x, new
 
@@ -116,12 +131,50 @@ def _server_layer(layer_def, params, x, train: bool):
     return y[0], tree_map(lambda t: t[0], upd)
 
 
-def make_apply(program: SplitProgram, capture_middle: bool = False
-               ) -> Callable:
+def _mean_stats(params, updates):
+    """Ghost BatchNorm's merge: each running statistic ('mean'/'var') is
+    the equal-weight mean of the groups' updates, summed in group order
+    as the reference's ``sum(xs) / len(xs)``; every other leaf is the
+    layer's own parameter, which a forward pass returns unchanged."""
+    out = {}
+    for k, v in params.items():
+        ups = [u[k] for u in updates]
+        if isinstance(v, dict):
+            out[k] = _mean_stats(v, ups)
+        elif k in ("mean", "var"):
+            out[k] = (ups[0] if len(ups) == 1
+                      else functools.reduce(torch.add, ups) / len(ups))
+        else:
+            out[k] = v
+    return out
+
+
+def server_pass(layer_def, params, xs: Sequence[torch.Tensor], train: bool,
+                concat_groups: bool = True):
+    """One shared server layer over the active groups' rows ``xs`` (in
+    group order): returns (each group's output rows, the layer's new
+    params). ``concat_groups`` runs the rows as one batch; otherwise
+    each group runs on its own and the statistics merge by
+    ``_mean_stats``."""
+    if not concat_groups:
+        runs = [_server_layer(layer_def, params, x, train) for x in xs]
+        return [y for y, _ in runs], _mean_stats(params,
+                                                 [u for _, u in runs])
+    x = torch.cat(xs, 0) if len(xs) > 1 else xs[0]
+    y, new = _server_layer(layer_def, params, x, train)
+    if len(xs) == 1:
+        return [y], new
+    return list(torch.split(y, [x.shape[0] for x in xs], 0)), new
+
+
+def make_apply(program: SplitProgram, capture_middle: bool = False,
+               concat_groups: bool = True) -> Callable:
     """Returns ``apply(client_params, server_params, inputs, train) ->
     (outputs {gname: [K, b, ...]}, new_client, new_server, middles)``
     with ``inputs`` = {gname: tuple of per-client-stacked tensors fed
-    to layer 0}."""
+    to layer 0}. ``concat_groups=False`` is the no-concat server
+    schedule (per-group BatchNorm statistics, see the module
+    docstring)."""
     defs = NET_LAYER_DEFS[program.net]
     n = program.n_layers
     middle = program.middle
@@ -133,8 +186,8 @@ def make_apply(program: SplitProgram, capture_middle: bool = False
         bufs: Dict[str, torch.Tensor] = {}
         shapes: Dict[str, Tuple[int, int]] = {}
         for seg in program.heads:
-            acts, upd = _client_pass(defs, client_params[seg.gname],
-                                     inputs[seg.gname], 0, seg.stop, train)
+            acts, upd = head_pass(defs, client_params[seg.gname],
+                                  inputs[seg.gname], seg.stop, train)
             new_client[seg.gname].update(upd)
             k, b = acts.shape[0], acts.shape[1]
             shapes[seg.gname] = (k, b)
@@ -143,12 +196,9 @@ def make_apply(program: SplitProgram, capture_middle: bool = False
         middles: Dict[str, torch.Tensor] = {}
         for step in program.steps:
             l = step.layer
-            xs = [bufs[gname] for gname in step.active]
-            sizes = [x.shape[0] for x in xs]
-            x = torch.cat(xs, 0) if len(xs) > 1 else xs[0]
-            x, new_server[str(l)] = _server_layer(
-                defs[l], server_params[str(l)], x, train)
-            parts = torch.split(x, sizes, 0) if len(xs) > 1 else [x]
+            parts, new_server[str(l)] = server_pass(
+                defs[l], server_params[str(l)],
+                [bufs[gname] for gname in step.active], train, concat_groups)
             for gname, part in zip(step.active, parts):
                 bufs[gname] = part
                 if capture_middle and l == middle:
@@ -160,9 +210,9 @@ def make_apply(program: SplitProgram, capture_middle: bool = False
         for seg in program.tails:
             k, b = shapes[seg.gname]
             x = outs[seg.gname]
-            x = x.reshape((k, b) + x.shape[1:])
-            y, upd = _client_pass(defs, client_params[seg.gname], x,
-                                  seg.start, n, train)
+            y, upd = tail_pass(defs, client_params[seg.gname],
+                               x.reshape((k, b) + x.shape[1:]), seg.start, n,
+                               train)
             new_client[seg.gname].update(upd)
             results[seg.gname] = y
         return results, new_client, new_server, middles

@@ -7,9 +7,12 @@ their client-side segments stack on a leading client axis.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
+
+import torch
 
 from repro_torch.core.latency import Cut, DeviceProfile
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -46,8 +49,20 @@ def bucket_size(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
 
+def head_layers(cut_pair: Tuple[int, int]) -> range:
+    return range(0, cut_pair[0])
+
+
+def server_layers(cut_pair: Tuple[int, int]) -> range:
+    return range(cut_pair[0], cut_pair[1])
+
+
+def tail_layers(cut_pair: Tuple[int, int], n_layers: int) -> range:
+    return range(cut_pair[1], n_layers)
+
+
 def client_owned_layers(cut_pair: Tuple[int, int], n_layers: int) -> List[int]:
-    return list(range(0, cut_pair[0])) + list(range(cut_pair[1], n_layers))
+    return list(head_layers(cut_pair)) + list(tail_layers(cut_pair, n_layers))
 
 
 def server_union_span(groups: Sequence[ProfileGroup], net: str,
@@ -55,9 +70,18 @@ def server_union_span(groups: Sequence[ProfileGroup], net: str,
     """All layer indices any client delegates to the server for net G|D."""
     owned = set()
     for g in groups:
-        h, t = layer_pair(g.cut, net)
-        owned |= set(range(h, t))
+        owned |= set(server_layers(layer_pair(g.cut, net)))
     return sorted(owned)
+
+
+def stack_params(init_fn: Callable, n: int, gen: torch.Generator, device,
+                 dtype=torch.float32):
+    """``n`` independent copies of a layer stacked on axis 0:
+    ``init_fn(gen, device, dtype)`` draws one copy, and the copies are
+    drawn from ``gen`` one after another (the reference vmaps its
+    initializer over split keys)."""
+    copies = [init_fn(gen, device, dtype) for _ in range(n)]
+    return tree_map(lambda *xs: torch.stack(xs), *copies)
 
 
 def layer_pair(cut: Cut, net: str) -> Tuple[int, int]:

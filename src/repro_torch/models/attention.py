@@ -107,17 +107,22 @@ def _chunk_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       window: Optional[int] = None, q_chunk: int = 512,
-                      causal: bool = True) -> torch.Tensor:
+                      k_chunk: int = 512, causal: bool = True
+                      ) -> torch.Tensor:
     """q [B,S,H,hd], k/v [B,S_kv,KV,hd] -> [B,S,H,hd], in float32.
 
     GQA by head grouping (query head h reads kv head h // (H/KV)).
     Queries go ``q_chunk`` at a time, each against the keys its mask can
     reach (causal: up to the chunk's last position; with a window: from
     ``window - 1`` before its first), so no ``[B, H, S, S]`` tensor is
-    built. A softmax over one chunk's whole key range equals the
-    reference's online softmax over key chunks up to float32 rounding.
-    Masked scores are ``NEG_INF`` and the denominator is clamped at
-    1e-30, so a row with nothing to attend comes out as zeros."""
+    built. Those keys go ``k_chunk`` at a time on the reference's grid
+    (multiples of ``k_chunk``, each chunk cut to the reachable range)
+    with an online softmax: a running maximum, and the sums and the
+    output rescaled by ``exp(old max - new max)``; with ``k_chunk`` at
+    least the reachable range it is one softmax over all of it.
+    Masked scores are ``NEG_INF`` and their weights exactly 0, and the
+    denominator is clamped at 1e-30, so a row with nothing to attend
+    comes out as zeros."""
     B, S, H, hd = q.shape
     S_kv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -132,20 +137,32 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             k1 = min(q1, S_kv)
             if window is not None:
                 k0 = max(0, q0 - window + 1)
-        s = torch.einsum("bqkgh,bckh->bkgqc", qf[:, q0:q1],
-                         kf[:, k0:k1]) * scale
-        if causal:
-            mask = _chunk_mask(torch.arange(q0, q1, device=q.device),
-                               torch.arange(k0, k1, device=q.device),
-                               window)
-            s = torch.where(mask, s, NEG_INF)
-        m = s.amax(-1, keepdim=True)
-        p = torch.exp(s - m)
-        if causal:
-            p = torch.where(mask, p, 0.0)
-        o = torch.einsum("bkgqc,bckh->bqkgh", p, vf[:, k0:k1])
-        den = p.sum(-1).permute(0, 3, 1, 2)[..., None]     # [B,q,KV,G,1]
-        outs.append(o / torch.clamp(den, min=1e-30))
+        # acc [B,q,KV,G,hd], den [B,q,KV,G,1], running max m [B,KV,G,q,1]
+        acc = den = m = None
+        for c0 in range(k0 - k0 % k_chunk, k1, k_chunk):
+            a, b = max(c0, k0), min(c0 + k_chunk, k1)
+            s = torch.einsum("bqkgh,bckh->bkgqc", qf[:, q0:q1],
+                             kf[:, a:b]) * scale
+            if causal:
+                mask = _chunk_mask(torch.arange(q0, q1, device=q.device),
+                                   torch.arange(a, b, device=q.device),
+                                   window)
+                s = torch.where(mask, s, NEG_INF)
+            blk = s.amax(-1, keepdim=True)
+            new_m = blk if m is None else torch.maximum(m, blk)
+            p = torch.exp(s - new_m)
+            if causal:
+                p = torch.where(mask, p, 0.0)
+            o = torch.einsum("bkgqc,bckh->bqkgh", p, vf[:, a:b])
+            d = p.sum(-1).permute(0, 3, 1, 2)[..., None]
+            if m is None:
+                acc, den = o, d
+            else:
+                corr = torch.exp(m - new_m).permute(0, 3, 1, 2, 4)
+                acc = acc * corr + o
+                den = den * corr + d
+            m = new_m
+        outs.append(acc / torch.clamp(den, min=1e-30))
     out = torch.cat(outs, 1) if len(outs) > 1 else outs[0]
     return out.reshape(B, S, H, hd).to(q.dtype)
 

@@ -28,24 +28,29 @@ from repro_torch.tree import tree_map
 _INFER_BATCH = 512
 
 
-def init_cnn(gen: torch.Generator, num_classes: int = 10, device="cuda"
-             ) -> Dict:
-    """Weights drawn on the CPU from ``gen``, then moved to ``device``."""
+def init_cnn(gen: torch.Generator, num_classes: int = 10, device="cuda",
+             dtype=torch.float32) -> Dict:
+    """Weights drawn on the CPU from ``gen``, then moved to ``device`` as
+    ``dtype``."""
     device = resolve_device(device)
     one = lambda p: tree_map(lambda x: x[0], p)   # noqa: E731
-    return {"c1": one(nn.conv2d_init(1, 1, 32, 3, gen, device)),
-            "c2": one(nn.conv2d_init(1, 32, 64, 3, gen, device)),
-            "fc1": nn.linear_init(7 * 7 * 64, 128, gen, device),
-            "fc2": nn.linear_init(128, num_classes, gen, device)}
+    return {"c1": one(nn.conv2d_init(1, 1, 32, 3, gen, device, dtype=dtype)),
+            "c2": one(nn.conv2d_init(1, 32, 64, 3, gen, device,
+                                     dtype=dtype)),
+            "fc1": nn.linear_init(7 * 7 * 64, 128, gen, device, dtype=dtype),
+            "fc2": nn.linear_init(128, num_classes, gen, device,
+                                  dtype=dtype)}
 
 
 def _conv_same(p: Dict, x: torch.Tensor, stride: int) -> torch.Tensor:
-    """NCHW conv with XLA's SAME padding."""
+    """NCHW conv with XLA's SAME padding, the weights cast to ``x``'s
+    dtype."""
     kh, kw = p["w"].shape[2:]
     ph = nn.same_pads(x.shape[2], kh, stride)
     pw = nn.same_pads(x.shape[3], kw, stride)
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-    return F.conv2d(x, p["w"], p["b"], stride=stride)
+    return F.conv2d(x, p["w"].to(x.dtype), p["b"].to(x.dtype),
+                    stride=stride)
 
 
 def cnn_apply(params: Dict, x: torch.Tensor, return_features: bool = False):

@@ -15,8 +15,9 @@ Discriminator (image 28x28 + label channel -> logit):
   L3: Conv 128->256 4x4 s2, BN, LReLU                    (7->4)
   L4: Flatten, FC->1
 
-Every layer is a ``LayerDef(init, apply)``. ``init(n, gen, device)``
-draws ``n`` independent copies stacked on a leading axis;
+Every layer is a ``LayerDef(init, apply)``. ``init(n, gen, device,
+dtype=torch.float32)`` draws ``n`` independent copies stacked on a
+leading axis;
 ``apply(p, x, train) -> (y, new_p)`` takes params with a leading client
 axis ``K`` and activations ``[K, b, ...]`` (NHWC), so a profile group's
 stacked clients run as one call (the reference's ``vmap``). Server
@@ -53,11 +54,12 @@ class LayerDef(NamedTuple):
 # generator layers
 # ---------------------------------------------------------------------------
 
-def _g0_init(n, gen, device):
-    return {"embed": nn.embedding_init(n, NUM_CLASSES, NUM_CLASSES, gen, device),
+def _g0_init(n, gen, device, dtype=torch.float32):
+    return {"embed": nn.embedding_init(n, NUM_CLASSES, NUM_CLASSES, gen,
+                                       device, dtype=dtype),
             "fc": nn.dense_init(n, Z_DIM + NUM_CLASSES, 256 * 7 * 7, gen,
-                                device),
-            "bn": nn.batchnorm_init(n, 256, device)}
+                                device, dtype=dtype),
+            "bn": nn.batchnorm_init(n, 256, device, dtype)}
 
 
 def _g0_apply(p, x, train):
@@ -71,9 +73,10 @@ def _g0_apply(p, x, train):
 
 
 def _gconvt_init(cin, cout, k):
-    def init(n, gen, device):
-        return {"convt": nn.convT2d_init(n, cin, cout, k, gen, device),
-                "bn": nn.batchnorm_init(n, cout, device)}
+    def init(n, gen, device, dtype=torch.float32):
+        return {"convt": nn.convT2d_init(n, cin, cout, k, gen, device,
+                                         dtype=dtype),
+                "bn": nn.batchnorm_init(n, cout, device, dtype)}
     return init
 
 
@@ -87,8 +90,8 @@ def _gconvt_apply(stride, final=False):
     return apply
 
 
-def _g4_init(n, gen, device):
-    return {"convt": nn.convT2d_init(n, 64, 1, 3, gen, device)}
+def _g4_init(n, gen, device, dtype=torch.float32):
+    return {"convt": nn.convT2d_init(n, 64, 1, 3, gen, device, dtype=dtype)}
 
 
 GEN_LAYER_DEFS: List[LayerDef] = [
@@ -104,10 +107,11 @@ GEN_LAYER_DEFS: List[LayerDef] = [
 # discriminator layers
 # ---------------------------------------------------------------------------
 
-def _d0_init(n, gen, device):
-    return {"embed": nn.embedding_init(n, NUM_CLASSES, IMG * IMG, gen, device),
-            "conv": nn.conv2d_init(n, 2, 64, 4, gen, device),
-            "bn": nn.batchnorm_init(n, 64, device)}
+def _d0_init(n, gen, device, dtype=torch.float32):
+    return {"embed": nn.embedding_init(n, NUM_CLASSES, IMG * IMG, gen,
+                                       device, dtype=dtype),
+            "conv": nn.conv2d_init(n, 2, 64, 4, gen, device, dtype=dtype),
+            "bn": nn.batchnorm_init(n, 64, device, dtype)}
 
 
 def _d0_apply(p, x, train):
@@ -121,9 +125,10 @@ def _d0_apply(p, x, train):
 
 
 def _dconv_init(cin, cout, k):
-    def init(n, gen, device):
-        return {"conv": nn.conv2d_init(n, cin, cout, k, gen, device),
-                "bn": nn.batchnorm_init(n, cout, device)}
+    def init(n, gen, device, dtype=torch.float32):
+        return {"conv": nn.conv2d_init(n, cin, cout, k, gen, device,
+                                       dtype=dtype),
+                "bn": nn.batchnorm_init(n, cout, device, dtype)}
     return init
 
 
@@ -135,8 +140,8 @@ def _dconv_apply(stride):
     return apply
 
 
-def _d4_init(n, gen, device):
-    return {"fc": nn.dense_init(n, 4 * 4 * 256, 1, gen, device)}
+def _d4_init(n, gen, device, dtype=torch.float32):
+    return {"fc": nn.dense_init(n, 4 * 4 * 256, 1, gen, device, dtype=dtype)}
 
 
 def _d4_apply(p, x, train):
@@ -159,13 +164,16 @@ NET_LAYER_DEFS = {"G": GEN_LAYER_DEFS, "D": DISC_LAYER_DEFS}
 # whole networks: ``n`` stacked copies (a single network is n = 1)
 # ---------------------------------------------------------------------------
 
-def init_generator(gen: torch.Generator, device, n: int = 1) -> List[Dict]:
-    return [d.init(n, gen, device) for d in GEN_LAYER_DEFS]
+def init_generator(gen: torch.Generator, device, n: int = 1,
+                   dtype=torch.float32) -> List[Dict]:
+    """Parameters as ``dtype`` (BatchNorm's running statistics stay
+    float32, as in the reference)."""
+    return [d.init(n, gen, device, dtype) for d in GEN_LAYER_DEFS]
 
 
-def init_discriminator(gen: torch.Generator, device, n: int = 1
-                       ) -> List[Dict]:
-    return [d.init(n, gen, device) for d in DISC_LAYER_DEFS]
+def init_discriminator(gen: torch.Generator, device, n: int = 1,
+                       dtype=torch.float32) -> List[Dict]:
+    return [d.init(n, gen, device, dtype) for d in DISC_LAYER_DEFS]
 
 
 def run_layers(defs: Sequence[LayerDef], params: List[Dict], x, *,

@@ -51,18 +51,29 @@ def _he_normal(shape, fan_in, gen, device):
     return (torch.randn(shape, generator=gen) * std).to(device)
 
 
-def dense_init(n: int, in_dim: int, out_dim: int, gen, device) -> Params:
+def _with_bias(w: torch.Tensor, lead: Tuple[int, ...], out_ch: int,
+               use_bias: bool, device, dtype) -> Params:
+    """``{"w"}`` as ``dtype`` on ``device``, with a zero bias
+    ``[*lead, out_ch]`` unless ``use_bias`` is False."""
+    p = {"w": w.to(device=device, dtype=dtype)}
+    if use_bias:
+        p["b"] = torch.zeros(lead + (out_ch,), device=device, dtype=dtype)
+    return p
+
+
+def dense_init(n: int, in_dim: int, out_dim: int, gen, device, *,
+               use_bias: bool = True, dtype=torch.float32) -> Params:
     limit = math.sqrt(6.0 / (in_dim + out_dim))
     w = torch.rand((n, in_dim, out_dim), generator=gen) * (2 * limit) - limit
-    return {"w": w.to(device),
-            "b": torch.zeros((n, out_dim), device=device)}
+    return _with_bias(w, (n,), out_dim, use_bias, device, dtype)
 
 
-def linear_init(in_dim: int, out_dim: int, gen, device) -> Params:
+def linear_init(in_dim: int, out_dim: int, gen, device, *,
+                dtype=torch.float32) -> Params:
     """A single-copy dense layer (Glorot-uniform weight, zero bias)."""
     limit = math.sqrt(6.0 / (in_dim + out_dim))
     w = torch.rand((in_dim, out_dim), generator=gen) * (2 * limit) - limit
-    return {"w": w.to(device), "b": torch.zeros((out_dim,), device=device)}
+    return _with_bias(w, (), out_dim, True, device, dtype)
 
 
 def rmsnorm_init(dim: int, device, dtype=torch.float32) -> Params:
@@ -100,28 +111,33 @@ def conv1d_init(in_ch: int, out_ch: int, kernel: int, gen, device, *,
     return p
 
 
-def embedding_init(n: int, vocab: int, dim: int, gen, device) -> Params:
+def embedding_init(n: int, vocab: int, dim: int, gen, device, *,
+                   dtype=torch.float32) -> Params:
     t = torch.randn((n, vocab, dim), generator=gen) / math.sqrt(dim)
-    return {"table": t.to(device)}
+    return {"table": t.to(device=device, dtype=dtype)}
 
 
 def conv2d_init(n: int, in_ch: int, out_ch: int, kernel: int, gen,
-                device) -> Params:
-    return {"w": _he_normal((n, out_ch, in_ch, kernel, kernel),
-                            in_ch * kernel * kernel, gen, device),
-            "b": torch.zeros((n, out_ch), device=device)}
+                device, *, use_bias: bool = True, dtype=torch.float32
+                ) -> Params:
+    w = _he_normal((n, out_ch, in_ch, kernel, kernel),
+                   in_ch * kernel * kernel, gen, "cpu")
+    return _with_bias(w, (n,), out_ch, use_bias, device, dtype)
 
 
 def convT2d_init(n: int, in_ch: int, out_ch: int, kernel: int, gen,
-                 device) -> Params:
-    return {"w": _he_normal((n, in_ch, out_ch, kernel, kernel),
-                            in_ch * kernel * kernel, gen, device),
-            "b": torch.zeros((n, out_ch), device=device)}
+                 device, *, use_bias: bool = True, dtype=torch.float32
+                 ) -> Params:
+    w = _he_normal((n, in_ch, out_ch, kernel, kernel),
+                   in_ch * kernel * kernel, gen, "cpu")
+    return _with_bias(w, (n,), out_ch, use_bias, device, dtype)
 
 
-def batchnorm_init(n: int, ch: int, device) -> Params:
-    return {"scale": torch.ones((n, ch), device=device),
-            "bias": torch.zeros((n, ch), device=device),
+def batchnorm_init(n: int, ch: int, device, dtype=torch.float32) -> Params:
+    """Scale and shift as ``dtype``; the running statistics are always
+    float32, as in the reference."""
+    return {"scale": torch.ones((n, ch), device=device, dtype=dtype),
+            "bias": torch.zeros((n, ch), device=device, dtype=dtype),
             "mean": torch.zeros((n, ch), device=device),
             "var": torch.ones((n, ch), device=device)}
 
@@ -131,13 +147,15 @@ def batchnorm_init(n: int, ch: int, device) -> Params:
 # ---------------------------------------------------------------------------
 
 def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x [K, b, in] @ w [K, in, out] + b [K, out]."""
-    return torch.bmm(x, p["w"]) + p["b"][:, None, :]
+    """x [K, b, in] @ w [K, in, out] (+ b [K, out]), the weight cast to
+    ``x``'s dtype as the reference casts it."""
+    y = torch.bmm(x, p["w"].to(x.dtype))
+    return y + p["b"][:, None, :] if "b" in p else y
 
 
 def linear_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     """x [..., in] @ w [in, out] + b [out]."""
-    return x @ p["w"] + p["b"]
+    return x @ p["w"].to(x.dtype) + p["b"]
 
 
 def embedding_apply(p: Params, ids: torch.Tensor) -> torch.Tensor:
@@ -173,7 +191,8 @@ def conv1d_apply(p: Params, x: torch.Tensor, *, stride: int = 1,
 
 
 # ---------------------------------------------------------------------------
-# conv / conv-transpose ("SAME" padding, NHWC activations)
+# conv / conv-transpose (NHWC activations; "SAME", "VALID" or explicit
+# ((lo, hi), (lo, hi)) padding with lax's semantics)
 # ---------------------------------------------------------------------------
 
 def _to_grouped(x: torch.Tensor) -> torch.Tensor:
@@ -196,15 +215,33 @@ def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv2d_apply(p: Params, x: torch.Tensor, *, stride: int = 1
-                 ) -> torch.Tensor:
+def _explicit_pads(padding) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    (a, b), (c, d) = padding
+    return (int(a), int(b)), (int(c), int(d))
+
+
+def _add_bias(p: Params, y: torch.Tensor) -> torch.Tensor:
+    """A grouped layer's [K, b, H, W, O] output plus its bias, if any."""
+    return y + p["b"][:, None, None, None, :] if "b" in p else y
+
+
+def conv2d_apply(p: Params, x: torch.Tensor, *, stride: int = 1,
+                 padding="SAME") -> torch.Tensor:
+    """``lax.conv_general_dilated(x, w, (stride, stride), padding)`` per
+    client: "SAME", "VALID", or explicit ``((lo, hi), (lo, hi))`` pixels
+    per spatial axis (a negative one crops)."""
     K, _, H, W, _ = x.shape
-    w = p["w"]                                          # [K, O, I, kh, kw]
+    w = p["w"].to(x.dtype)                              # [K, O, I, kh, kw]
     O, I, kh, kw = w.shape[1:]
-    ph, pw = same_pads(H, kh, stride), same_pads(W, kw, stride)
+    if padding == "SAME":
+        ph, pw = same_pads(H, kh, stride), same_pads(W, kw, stride)
+    elif padding == "VALID":
+        ph, pw = (0, 0), (0, 0)
+    else:
+        ph, pw = _explicit_pads(padding)
     xg = F.pad(_to_grouped(x), (pw[0], pw[1], ph[0], ph[1]))
     y = F.conv2d(xg, w.reshape(K * O, I, kh, kw), stride=stride, groups=K)
-    return _from_grouped(y, K) + p["b"][:, None, None, None, :]
+    return _add_bias(p, _from_grouped(y, K))
 
 
 def conv_transpose_pads(k: int, s: int) -> Tuple[int, int]:
@@ -215,26 +252,49 @@ def conv_transpose_pads(k: int, s: int) -> Tuple[int, int]:
     return before, pad_len - before
 
 
-def convT2d_apply(p: Params, x: torch.Tensor, *, stride: int = 1
-                  ) -> torch.Tensor:
-    """``lax.conv_transpose(x, w, SAME)`` without ``transpose_kernel``:
-    correlate the stride-dilated input with the HWIO kernel. The stored
+def conv_transpose_valid_pads(k: int, s: int) -> Tuple[int, int]:
+    """"VALID" padding of ``lax.conv_transpose`` on the stride-dilated
+    input: (before, after), which sum to k + s - 2 + max(k - s, 0)."""
+    pad_len = k + s - 2 + max(k - s, 0)
+    return k - 1, pad_len - (k - 1)
+
+
+def convT2d_apply(p: Params, x: torch.Tensor, *, stride: int = 1,
+                  padding="SAME") -> torch.Tensor:
+    """``lax.conv_transpose(x, w, padding)`` without
+    ``transpose_kernel``: correlate the stride-dilated input, padded by
+    ``padding`` ("SAME", "VALID", or explicit ``((lo, hi), (lo, hi))``
+    pixels of the dilated input), with the HWIO kernel. The stored
     kernel is that kernel flipped in space with I/O in torch's order, so
-    ``F.conv_transpose2d`` computes it once the padding is matched: its
-    padding ``p`` pads ``k - 1 - p`` before, and ``output_padding``
-    adds after. When JAX pads less after than before, the extra output
-    rows are cropped. Output size is ``size * stride``."""
+    ``F.conv_transpose2d`` computes it once the padding is matched: at
+    padding 0 it pads ``k - 1`` on both sides of the dilated input, and
+    "SAME" sets its ``padding`` ``p`` (``k - 1 - p`` before) and
+    ``output_padding`` (added after), cropping the extra rows when JAX
+    pads less after than before (output size ``size * stride``). Any
+    other padding pads or crops (negative) that full output by ``lo -
+    (k - 1)`` before and ``hi - (k - 1)`` after."""
     K, _, H, W, _ = x.shape
-    w = p["w"]                                          # [K, I, O, kh, kw]
+    w = p["w"].to(x.dtype)                              # [K, I, O, kh, kw]
     I, O, kh, kw = w.shape[1:]
-    (bh, ah), (bw, aw) = conv_transpose_pads(kh, stride), \
-        conv_transpose_pads(kw, stride)
-    y = F.conv_transpose2d(
-        _to_grouped(x), w.reshape(K * I, O, kh, kw), stride=stride,
-        padding=(kh - 1 - bh, kw - 1 - bw),
-        output_padding=(max(ah - bh, 0), max(aw - bw, 0)), groups=K)
-    y = y[:, :, :H * stride, :W * stride]
-    return _from_grouped(y, K) + p["b"][:, None, None, None, :]
+    wg = w.reshape(K * I, O, kh, kw)
+    if padding == "SAME":
+        (bh, ah), (bw, aw) = conv_transpose_pads(kh, stride), \
+            conv_transpose_pads(kw, stride)
+        y = F.conv_transpose2d(
+            _to_grouped(x), wg, stride=stride,
+            padding=(kh - 1 - bh, kw - 1 - bw),
+            output_padding=(max(ah - bh, 0), max(aw - bw, 0)), groups=K)
+        y = y[:, :, :H * stride, :W * stride]
+    else:
+        if padding == "VALID":
+            ph = conv_transpose_valid_pads(kh, stride)
+            pw = conv_transpose_valid_pads(kw, stride)
+        else:
+            ph, pw = _explicit_pads(padding)
+        y = F.conv_transpose2d(_to_grouped(x), wg, stride=stride, groups=K)
+        y = F.pad(y, (pw[0] - (kw - 1), pw[1] - (kw - 1),
+                      ph[0] - (kh - 1), ph[1] - (kh - 1)))
+    return _add_bias(p, _from_grouped(y, K))
 
 
 # ---------------------------------------------------------------------------

@@ -166,8 +166,10 @@ def test_config_takes_the_reference_fields():
     ported = {f.name for f in dataclasses.fields(thuscf.HuSCFConfig)}
     assert names <= ported
     cfg = thuscf.HuSCFConfig(fused_epoch=False, epoch_unroll=4,
-                             split_program=True)
-    thuscf._check_supported(cfg)
+                             split_program=False)
+    assert (cfg.fused_epoch, cfg.epoch_unroll, cfg.split_program) == (
+        False, 4, False)
+    assert thuscf.HuSCFConfig().split_program is True
     assert thuscf.HuSCFConfig().fused_epoch is True
     assert jhuscf.HuSCFConfig().fused_epoch is True
 
@@ -175,9 +177,14 @@ def test_config_takes_the_reference_fields():
 @pytest.mark.parametrize("field,value,match", [
     ("split_program", False, "legacy hand-rolled")])
 def test_config_values_the_port_cannot_honour_raise(field, value, match):
+    """No config value of the reference raises in the port any more: the
+    last one, ``split_program=False``, runs the legacy hand-rolled loops
+    (``build_net_apply_legacy``) since they were ported."""
     clients = tpart.build_scenario("2dom_noniid", num_clients=2,
                                    base_size=8, seed=0)
-    with pytest.raises(NotImplementedError, match=match):
-        thuscf.HuSCFTrainer(clients,
-                            config=thuscf.HuSCFConfig(**{field: value}),
-                            device="cpu")
+    tr = thuscf.HuSCFTrainer(clients,
+                             config=thuscf.HuSCFConfig(**{field: value}),
+                             device="cpu")
+    assert match in thuscf.build_net_apply_legacy.__doc__
+    for apply in (tr._gen_apply, tr._disc_apply):
+        assert apply.__qualname__.startswith("build_net_apply_legacy.")
