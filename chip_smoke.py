@@ -155,6 +155,25 @@ Phases (any failure exits non-zero and prints no result):
      ``torch_serve_lm.py`` and ``torch_split_lm_training.py`` at their
      defaults, each through ``main`` on the card, timed, every returned
      number finite;
+  4f. the mesh runtime (``run_mesh``, after the LM phase has freed the
+     card): 4 ranks spawned by ``launch.mesh.run_ranks`` on the one card
+     (gloo: ranks that share a GPU), meshes of 1, 2 and 4 ranks carved
+     from them. The slice's trainer (8 clients, Table-3 widths, base
+     size 128, batch 16, the launcher's cuts) on each mesh: one fused
+     epoch, the replicas' largest difference, then a FedAvg and a
+     clustered round, each held against the unsharded round on the same
+     rank from the same input (MESH_TOL), K1 once per net and round on
+     every rank and K2 on every rank (counts set to 0 just before each
+     round, read just after), the replicas equal after it; K1 on each
+     rank's row block against its plain version and timed (ranks in
+     turn). A 56-client population (8 per profile, base size 24,
+     agg_chunk 4) on 2 and 4 ranks: one step and a chunked clustered
+     round sharded per group, within MESH_CHUNK_TOL of the unsharded
+     stream, K1 once per chunk tile of each rank's block. The launcher's
+     edge-heavy GAN cohort served on 2 and 4 ranks against ``mesh=None``
+     (MESH_SERVE_TOL). Each round's wall time and its collectives' ms
+     are logged; the card's memory is held to
+     ``launch.mesh.CARD_HBM_BYTES``. Prints the ``mesh`` line;
   5. GAN split serving: ``repro_torch.launch.serve_split.main --mode gan``
      at full width on both profile mixes (24 requests each); the images
      are finite, in the tanh range and equal each client's monolithic
@@ -202,9 +221,10 @@ Phases (any failure exits non-zero and prints no result):
      algorithm: training and evaluation seconds, seconds per step,
      epochs, steps and the per-domain metrics; the cuts in
      ``reduced``), the ``lm`` line (the card's name and power limit, then
-     the phase 4d numbers), one with the kernels (K1 and K2 with their
-     population shapes, launches and the re-cut, quality and legacy
-     runs' launches), then the result line.
+     the phase 4d numbers), the ``mesh`` line (phase 4f), one with the
+     kernels (K1 and K2 with their population shapes, launches and the
+     re-cut, quality, legacy and mesh runs' launches, K1 at the mesh's
+     row blocks), then the result line.
 
 Float32 products and convolutions run in full float32 (TF32 off).
 """
@@ -3034,6 +3054,435 @@ def run_examples(device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 4f. the mesh runtime: client-sharded rounds and serving on ranks that
+# share the card
+# ---------------------------------------------------------------------------
+
+MESH_WORLD = 4                  # one group of ranks; meshes carved from it
+MESH_SLICE_RANKS = (1, 2, 4)
+MESH_CHUNK_RANKS = (2, 4)
+MESH_POP_CLIENTS = 56           # 8 per profile of the paper's 7 devices
+MESH_POP_BASE_SIZE = 24
+MESH_POP_CHUNK = 4
+# a sharded round sums the ranks' partial products in another order than
+# one product: the CPU tests' bounds (tests/test_torch_mesh.py), 1e-6 for
+# the dense round, 1e-5 for the chunk stream's re-associated sums
+MESH_TOL = 1e-6
+MESH_CHUNK_TOL = 1e-5
+# sharded serving runs a convolution over a quarter or half of a bucket's
+# rows, for which cuDNN may pick another algorithm than for all of them:
+# images in the tanh range agree to a few float32 ulps
+MESH_SERVE_TOL = 1e-5
+
+
+def mesh_sizes() -> dict:
+    """The phase's sizes, handed to the ranks (a rehearsal on the CPU
+    passes smaller ones)."""
+    return {"clients": SLICE_CLIENTS, "base_size": SLICE_BASE_SIZE,
+            "batch": SLICE_BATCH, "pop_clients": MESH_POP_CLIENTS,
+            "pop_base_size": MESH_POP_BASE_SIZE, "chunk": MESH_POP_CHUNK}
+
+
+def _sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+class _CollectiveClock:
+    """Host milliseconds spent in the mesh's collectives, each call
+    synchronised before and after: wraps ``all_reduce_sum`` (the rounds'
+    partial sums and the served outputs) and ``broadcast_flat`` (the
+    replica sync) on the module the federation, the trainer and the
+    engine call through."""
+
+    def __init__(self, mesh_mod, device):
+        self.ms = {"all_reduce": 0.0, "sync_replicas": 0.0}
+        self.calls = {"all_reduce": 0, "sync_replicas": 0}
+
+        def timed(fn, key):
+            def run(*a, **k):
+                _sync(device)
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                _sync(device)
+                self.ms[key] += (time.perf_counter() - t0) * 1e3
+                self.calls[key] += 1
+                return out
+            return run
+        mesh_mod.all_reduce_sum = timed(mesh_mod.all_reduce_sum, "all_reduce")
+        mesh_mod.broadcast_flat = timed(mesh_mod.broadcast_flat,
+                                        "sync_replicas")
+
+    def take(self) -> dict:
+        out = {"ms": dict(self.ms), "calls": dict(self.calls)}
+        for k in self.ms:
+            self.ms[k], self.calls[k] = 0.0, 0
+        return out
+
+
+def _flat_state(tr):
+    """The trainer's carried leaves and EMA, one flat buffer per dtype."""
+    import torch
+    from repro_torch.core.huscf import _carry_items
+    by = {}
+    for _, x in _carry_items(tr.state) + [(("ema",), tr._mid_ema)]:
+        by.setdefault(x.dtype, []).append(x.reshape(-1))
+    return [torch.cat(v) for v in by.values()]
+
+
+def replica_spread(tr, mesh) -> float:
+    """Largest |this rank's - the mesh's first rank's| over the trainer's
+    state and EMA, the largest over the mesh's ranks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    worst = torch.zeros((), dtype=torch.float64, device=tr.device)
+    for flat in _flat_state(tr):
+        first = flat.clone()
+        M.broadcast_from_first([first], mesh)
+        worst = torch.maximum(worst, (flat.double() - first.double())
+                              .abs().max())
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX, group=mesh.get_group("data"))
+    return float(worst)
+
+
+def _clients_of(tr, net: str) -> dict:
+    import torch
+    from repro_torch.tree import tree_map
+    return {g.name: {net: tree_map(torch.clone, tr.state[net]["client"][g.name])}
+            for g in tr.groups}
+
+
+def _round_vs_single(tr, mesh, clock, chunk=None) -> dict:
+    """One federation round of ``tr`` on ``mesh`` (every rank of it runs
+    it), then the same round without a mesh on this rank from the same
+    input (the replicas synced first) and the same labels and weights:
+    wall time, collective ms, K1/K2 launches of the sharded round, its
+    largest difference from the unsharded one."""
+    import torch
+    from repro_torch.core.clustering import k_selection_bound
+    from repro_torch.core.federation import (N_LAYERS, fedavg_uniform,
+                                             federate_client_params_device)
+    from repro_torch.kernels import kmeans_assign as km
+    from repro_torch.kernels import weighted_agg as wa
+    from repro_torch.tree import tree_items
+    if mesh.size() > 1:
+        tr.sync_replicas(mesh)
+    before = {net: _clients_of(tr, net) for net in ("G", "D")}
+    clock.take()
+    wa.launches = km.launches = 0
+    _sync(tr.device)
+    t0 = time.perf_counter()
+    diag = tr.federate()
+    _sync(tr.device)
+    wall = time.perf_counter() - t0
+    k1, k2 = wa.launches, km.launches
+    coll = clock.take()
+    diff = 0.0
+    for net in ("G", "D"):
+        kw = dict(n_layers={net: N_LAYERS[net]}, use_kernel=True,
+                  chunk_size=chunk)
+        if diag["mode"] == "fedavg":
+            want = fedavg_uniform(tr.groups, before[net], tr.sizes, **kw)
+        else:
+            want = federate_client_params_device(
+                tr.groups, before[net], diag["weights"], diag["labels"],
+                k_selection_bound(len(tr.clients), tr.cfg.num_clusters),
+                **kw)
+        for g in tr.groups:
+            for (_, a), (_, b) in zip(tree_items(tr.state[net]["client"][g.name]),
+                                      tree_items(want[g.name][net])):
+                diff = max(diff, float((a - b).abs().max()))
+    return {"mode": diag["mode"], "wall_s": wall, "collective": coll,
+            "k1_launches": k1, "k2_launches": k2, "max_abs_diff": diff,
+            "k": int(diag.get("k", 1))}
+
+
+def _shard_check(tr, mesh, diag_src) -> dict:
+    """K1 on this rank's row block of the generator's dense plan against
+    its plain version, and the block's time (ranks in turn)."""
+    import torch.distributed as dist
+    from repro_torch.core.clustering import k_selection_bound
+    from repro_torch.kernels import weighted_agg as wa
+    from repro_torch.kernels.ref import clustered_agg_ref
+    plan = next(p for p in tr._fed_plans.values()
+                if p.net == "G" and p.chunk_size is None
+                and p.mesh is not None)
+    lo, hi = plan.row_block()
+    bound_k = k_selection_bound(len(tr.clients), tr.cfg.num_clusters)
+    A, _ = plan.device_weight_segments(diag_src["weights"], diag_src["labels"],
+                                       bound_k)
+    A = A[:, lo:hi].contiguous()
+    client = {g.name: tr.state["G"]["client"][g.name] for g in tr.groups}
+    theta = plan.flatten(client, tr.device, (lo, hi))
+    got, want = wa.clustered_agg_flat(A, theta), clustered_agg_ref(A, theta)
+    _sync(tr.device)
+    err = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    ms = None
+    group = mesh.get_group("data")
+    for r in range(mesh.size()):
+        dist.barrier(group=group)
+        if mesh.get_local_rank("data") == r and tr.device.type == "cuda":
+            ms = time_ms(lambda: wa.clustered_agg_flat(A, theta), iters=50)
+    dist.barrier(group=group)
+    return {"rows": [lo, hi], "shape": {"S": int(A.shape[0]),
+                                        "K": int(A.shape[1]),
+                                        "D": int(theta.shape[1])},
+            "max_abs_err": err, "scale": scale, "ms_alone": ms,
+            "dense_buffer_bytes": plan.dense_buffer_bytes(),
+            "row_stride": plan.row_stride,
+            "aligned": theta.stride(0) % 32 == 0 and theta.data_ptr() % 16 == 0}
+
+
+def _mesh_slice(mesh, cuts, clock, device, sz) -> dict:
+    """The slice's trainer at full width on ``mesh``: one fused epoch, a
+    FedAvg and a clustered round, the replicas' spread before the first
+    round and after the last."""
+    import numpy as np
+    from repro_torch.core.huscf import HuSCFConfig, HuSCFTrainer
+    from repro_torch.core.latency import Cut, PAPER_DEVICES
+    from repro_torch.data.partition import build_scenario
+    from repro_torch.launch import mesh as M
+    n = sz["clients"]
+    clients = build_scenario("2dom_noniid", num_clients=n,
+                             base_size=sz["base_size"], seed=0)
+    devices = [PAPER_DEVICES[i % 7] for i in range(n)]
+    tr = HuSCFTrainer(clients, devices, cuts=[Cut(*c) for c in cuts[:n]],
+                      config=HuSCFConfig(batch=sz["batch"], seed=0,
+                                         warmup_fed_rounds=1),
+                      device=M.rank_device(device), fed_mesh=mesh)
+    steps = max(1, int(np.median(tr.sizes)) // sz["batch"])
+    _sync(device)
+    t0 = time.perf_counter()
+    losses = tr.train_steps(steps)
+    _sync(device)
+    out = {"epoch_s": time.perf_counter() - t0, "steps": steps,
+           "losses_finite": all(math.isfinite(v) for v in losses.values()),
+           "spread_before": (replica_spread(tr, mesh) if mesh.size() > 1
+                             else 0.0),
+           "rounds": [_round_vs_single(tr, mesh, clock) for _ in range(2)]}
+    out["spread_after"] = (replica_spread(tr, mesh) if mesh.size() > 1
+                           else 0.0)
+    out["client_axes"] = sorted({str(p._client_axes)
+                                 for p in tr._fed_plans.values()})
+    if mesh.size() > 1:
+        out["shard"] = _shard_check(tr, mesh, tr.fed_log[-1])
+    return out
+
+
+def _mesh_chunked(mesh, cuts, clock, device, sz) -> dict:
+    """56 clients, 8 per profile, base size 24, agg_chunk 4: one step and
+    a chunked clustered round sharded per group, against the unsharded
+    stream from the same input; K1 launches against one per chunk tile of
+    this rank's block of every group."""
+    from repro_torch.core.huscf import HuSCFConfig, HuSCFTrainer
+    from repro_torch.core.latency import Cut, PAPER_DEVICES
+    from repro_torch.data.partition import build_scenario
+    from repro_torch.launch import mesh as M
+    n, chunk = sz["pop_clients"], sz["chunk"]
+    clients = build_scenario("2dom_noniid", num_clients=n,
+                             base_size=sz["pop_base_size"], seed=0)
+    devices = [PAPER_DEVICES[i % 7] for i in range(n)]
+    tr = HuSCFTrainer(clients, devices,
+                      cuts=[Cut(*cuts[i % 7]) for i in range(n)],
+                      config=HuSCFConfig(batch=sz["batch"], seed=0,
+                                         warmup_fed_rounds=0,
+                                         agg_chunk=chunk,
+                                         fused_epoch=False),
+                      device=M.rank_device(device), fed_mesh=mesh)
+    tr.train_steps(1)
+    rnd = _round_vs_single(tr, mesh, clock, chunk=chunk)
+    per = mesh.size()
+    rnd["k1_expected"] = 2 * sum(-(-(g.size // per) // chunk)
+                                 for g in tr.groups)
+    rnd["groups"] = [g.size for g in tr.groups]
+    rnd["chunk_axes"] = sorted({str(p._chunk_axes)
+                                for p in tr._fed_plans.values()})
+    return rnd
+
+
+def _mesh_serve(mesh, clock, device, sz) -> dict:
+    """The launcher's edge-heavy cohort (24 requests) on ``mesh`` against
+    the same engine without one: images, serve ms (median of 5, in turns
+    single, sharded, sharded, single)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve_split as ss
+    from repro_torch.models.gan import Z_DIM
+    dev = M.rank_device(device)
+    groups = ss.build_mix("edge-heavy")
+    client, server = ss.init_gan_serving_state(
+        torch.Generator().manual_seed(0), groups, device=dev)
+    rng = np.random.default_rng(0)
+    n_clients = sum(g.size for g in groups)
+    reqs = [ss.ServeRequest(int(rng.integers(0, n_clients)),
+                            rng.normal(0, 1, Z_DIM).astype(np.float32),
+                            int(rng.integers(0, 10))) for _ in range(24)]
+    sharded = ss.SplitGanEngine(groups, client, server, mesh=mesh)
+    single = ss.SplitGanEngine(groups, client, server)
+    want = single.serve(reqs)
+    got = sharded.serve(reqs)
+    times = {}
+    for name, eng in (("single", single), ("sharded", sharded),
+                      ("sharded2", sharded), ("single2", single)):
+        t = []
+        for _ in range(5):
+            _sync(dev)
+            t0 = time.perf_counter()
+            eng.serve(reqs)
+            t.append((time.perf_counter() - t0) * 1e3)
+        times[name] = sorted(t)[2]
+    clock.take()
+    _, buckets, _ = sharded.plan(reqs)
+    return {"buckets": list(buckets), "axes": sharded.shard_axes(buckets),
+            "max_abs_diff": float(np.abs(got - want).max()),
+            "finite": bool(np.isfinite(got).all()), "ms": times}
+
+
+def _count_plain_calls() -> None:
+    """A rehearsal on the CPU: the K1/K2 wrappers take their plain
+    versions there and count nothing, so count their calls."""
+    from repro_torch.kernels import kmeans_assign as km
+    from repro_torch.kernels import weighted_agg as wa
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+
+        def run(*a, **k):
+            mod.launches += 1
+            return fn(*a, **k)
+        setattr(mod, name, run)
+    counted(wa, "clustered_agg_flat")
+    counted(km, "kmeans_assign")
+
+
+def _mesh_rank(cuts, device: str, sz: dict) -> dict:
+    """One rank of the mesh phase: the slice on meshes of 1, 2 and 4
+    ranks, the chunked population on 2 and 4, serving on 2 and 4 (every
+    rank builds every mesh; ranks outside one wait)."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    clock = _CollectiveClock(M, device)
+    out = {"rank": dist.get_rank(), "slice": {}, "chunked": {}, "serve": {}}
+    on_cuda = torch.device(device).type == "cuda"
+    if not on_cuda:
+        _count_plain_calls()
+    for what, sizes, run in (("slice", MESH_SLICE_RANKS, _mesh_slice),
+                             ("chunked", MESH_CHUNK_RANKS, _mesh_chunked),
+                             ("serve", MESH_CHUNK_RANKS, _mesh_serve)):
+        for n in sizes:
+            mesh = M.make_federation_mesh(n, device)
+            t0 = time.perf_counter()
+            if M.in_mesh(mesh):
+                out[what][str(n)] = (
+                    run(mesh, clock, device, sz) if run is _mesh_serve
+                    else run(mesh, cuts, clock, device, sz))
+                out[what][str(n)]["phase_s"] = time.perf_counter() - t0
+            gc.collect()
+            if on_cuda:
+                torch.cuda.empty_cache()
+            dist.barrier()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() if on_cuda else 0
+    return out
+
+
+def run_mesh(cuts, device: str = "cuda", sz: dict = None) -> dict:
+    """Phase 4f: ``MESH_WORLD`` ranks on the one card (gloo: they share
+    it) through ``launch.mesh.run_ranks``; every check of the ranks'
+    results; returns the ``mesh`` line. On one card the ranks share the
+    SMs, so times measure the decomposition's overhead, not a speed-up."""
+    import torch
+    from repro_torch.launch import mesh as M
+    total = (torch.cuda.get_device_properties(0).total_memory
+             if device == "cuda" else M.CARD_HBM_BYTES)
+    if not 0.97 * M.CARD_HBM_BYTES <= total <= M.CARD_HBM_BYTES:
+        raise AssertionError(f"the card has {total} bytes of device memory, "
+                             f"launch.mesh.CARD_HBM_BYTES says "
+                             f"{M.CARD_HBM_BYTES}")
+    backend, reason = M.pick_backend(MESH_WORLD, device)
+    t0 = time.perf_counter()
+    ranks = M.run_ranks(MESH_WORLD, _mesh_rank,
+                        [c.as_tuple() for c in cuts], device,
+                        sz or mesh_sizes(), device_type=device, timeout=600)
+    phase_s = time.perf_counter() - t0
+    slice_ = {}
+    for n in MESH_SLICE_RANKS:
+        per = [r["slice"][str(n)] for r in ranks if str(n) in r["slice"]]
+        if len(per) != n:
+            raise AssertionError(f"{len(per)} ranks reported the {n}-rank "
+                                 "slice")
+        for rank, p in enumerate(per):
+            modes = [rd["mode"] for rd in p["rounds"]]
+            if modes != ["fedavg", "clustered"] or not p["losses_finite"]:
+                raise AssertionError(f"{n}-rank slice, rank {rank}: rounds "
+                                     f"{modes}, finite {p['losses_finite']}")
+            for rd in p["rounds"]:
+                if rd["k1_launches"] != 2 or not rd["max_abs_diff"] <= MESH_TOL:
+                    raise AssertionError(
+                        f"{n}-rank {rd['mode']} round, rank {rank}: K1 "
+                        f"{rd['k1_launches']} launches (2 expected), "
+                        f"{rd['max_abs_diff']} from the unsharded round")
+            if p["rounds"][1]["k2_launches"] <= 0:
+                raise AssertionError(f"{n}-rank clustered round, rank {rank}:"
+                                     " K2 never launched")
+            if n > 1:
+                sh = p["shard"]
+                if p["spread_after"] != 0.0 or p["client_axes"] != ["data"] \
+                        or not sh["aligned"] \
+                        or not sh["max_abs_err"] <= K1_RTOL * sh["scale"]:
+                    raise AssertionError(f"{n}-rank slice, rank {rank}: {p}")
+        slice_[str(n)] = per
+    chunked = {}
+    for n in MESH_CHUNK_RANKS:
+        per = [r["chunked"][str(n)] for r in ranks if str(n) in r["chunked"]]
+        for rank, rd in enumerate(per):
+            if rd["mode"] != "clustered" or rd["chunk_axes"] != ["data"] or \
+                    rd["k1_launches"] != rd["k1_expected"] or \
+                    not rd["max_abs_diff"] <= MESH_CHUNK_TOL:
+                raise AssertionError(f"{n}-rank chunked round, rank {rank}: "
+                                     f"{rd}")
+        chunked[str(n)] = per
+    serve = {}
+    for n in MESH_CHUNK_RANKS:
+        per = [r["serve"][str(n)] for r in ranks if str(n) in r["serve"]]
+        for rank, s in enumerate(per):
+            if s["axes"] != "data" or not s["finite"] or \
+                    not s["max_abs_diff"] <= MESH_SERVE_TOL:
+                raise AssertionError(f"{n}-rank serving, rank {rank}: {s}")
+        serve[str(n)] = per
+    for n in MESH_SLICE_RANKS:
+        for rd_i, mode in enumerate(("fedavg", "clustered")):
+            rds = [p["rounds"][rd_i] for p in slice_[str(n)]]
+            log(f"mesh {n} rank(s) {mode} round: wall "
+                f"{[round(r['wall_s'], 4) for r in rds]} s, all-reduce "
+                f"{[round(r['collective']['ms']['all_reduce'], 2) for r in rds]}"
+                f" ms, replica sync "
+                f"{[round(r['collective']['ms']['sync_replicas'], 2) for r in rds]}"
+                f" ms, diff {max(r['max_abs_diff'] for r in rds):.2e} (ranks "
+                "share the card's SMs: overhead of the decomposition, not a "
+                "speed-up)")
+    return {"world": MESH_WORLD, "backend": backend, "backend_reason": reason,
+            "card_hbm_bytes": total, "hbm_constant": M.CARD_HBM_BYTES,
+            "phase_s": phase_s, "slice": slice_, "chunked": chunked,
+            "serve": serve,
+            "peak_bytes_per_rank": [r["peak_bytes"] for r in ranks],
+            "k1_launches": {
+                "slice": {n: [[rd["k1_launches"] for rd in p["rounds"]]
+                              for p in slice_[n]] for n in slice_},
+                "chunked": {n: [rd["k1_launches"] for rd in chunked[n]]
+                            for n in chunked}},
+            "note": "ranks share one card's SMs under gloo: times measure "
+                    "the decomposition's overhead, not a speed-up"}
+
+
 def main() -> int:
     import torch
     t_start = time.perf_counter()
@@ -3112,6 +3561,7 @@ def main() -> int:
     tr._drop_graphs()
     _free_cuda()
     lm = run_lm(train_main, lm_serve_main, smi)
+    mesh = run_mesh(tr.cuts)
     kernels = check_kernels(tr)
     for k in kernels:
         k["launches"] = counts[k["name"]]
@@ -3131,6 +3581,18 @@ def main() -> int:
     kernels[0]["dense_k2560"] = dict(k1_rows["dense_k2560"], launches=None)
     kernels[1]["population"] = dict(pop_k["kmeans_assign"],
                                     launches=population["k2_launches"])
+    # the mesh phase: K1 once per net and round on every rank (its row
+    # block), K2 on every rank; K1 timed at the blocks' shapes
+    kernels[0]["mesh_launches"] = mesh["k1_launches"]
+    kernels[1]["mesh_launches"] = {
+        n: [p["rounds"][1]["k2_launches"] for p in per]
+        for n, per in mesh["slice"].items()}
+    for n in MESH_SLICE_RANKS[1:]:
+        sh = mesh["slice"][str(n)][0]["shard"]["shape"]
+        kernels[0][f"mesh_shard_{n}"] = dict(
+            time_clustered_agg(gen, sh["S"], sh["K"], sh["D"]),
+            launches_per_rank=[rd["k1_launches"] for rd in
+                               mesh["slice"][str(n)][0]["rounds"]])
     attn_err = check_attention(gen)
     lm_cfg = SplitLMConfig(s_max=lm_serve["prompt"] + lm_serve["gen"] + 16)
     attn_times = time_attention(gen, lm_cfg, lm_serve["batch"],
@@ -3174,6 +3636,7 @@ def main() -> int:
         "phase_s": recut_s}}), flush=True)
     print(json.dumps({"quality": quality}), flush=True)
     print(json.dumps({"lm": lm}), flush=True)
+    print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,7 +46,21 @@ cluster) (``weighted_average_stacked``, K1's S = 1 case with
 ``use_kernel``) scattered back to every member; full-participation dense
 rounds only.
 
-Mesh sharding (M10) is not ported; ``mesh=`` raises.
+Sharded round (``mesh=``, a ``DeviceMesh`` from
+``launch.mesh.make_federation_mesh``): every rank of the mesh holds the
+whole client params (replicated) and runs the round; the rows of the
+dense ``theta`` shard over the mesh's ('pod', 'data') axes. Rank r
+flattens only its row block, contracts ``A[:, block] @ theta[block]``
+(K1 with ``use_kernel``) into a partial ``[S, D]``, and one
+``all_reduce`` over the data axes leaves the full segment aggregates on
+every rank, which unflattens them locally: the reference's
+``shard_map`` partial sum and ``psum``. The chunk stream shards each
+group's rows the same way and reduces ``(acc, mass)``. Cohorts and the
+recv-select compose with both. When the rows do not divide by the mesh
+(``sharding.policy.client_axes``; every group's rows for the chunk
+stream, ``group_client_axes``) or the mesh has one rank, the plan takes
+the single-device path, bit for bit. Plans are cached per mesh (its
+ranks, shape and axis names), chunk size and cohort size.
 """
 from __future__ import annotations
 
@@ -60,7 +74,9 @@ import torch.nn.functional as F
 from repro_torch.core.splitting import (ProfileGroup, client_owned_layers,
                                         layer_pair)
 from repro_torch.kernels import ops as kops
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.gan import DISC_LAYER_DEFS, GEN_LAYER_DEFS
+from repro_torch.sharding.policy import client_axes, group_client_axes
 from repro_torch.tree import tree_from_items, tree_items, tree_map
 
 _SEGMENT_PAD = 8
@@ -87,12 +103,6 @@ class _SegmentEntry:
     sid0: int                   # slice into the per-copy segment-id vec
     sid1: int
     leaves: Tuple[_LeafSpec, ...]
-
-
-def _unsupported(mesh=None) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded federation is not ported "
-                                  "(ROADMAP M10, mesh code)")
 
 
 def _padded_segments(n_seg: int) -> int:
@@ -131,13 +141,17 @@ def weighted_average_stacked(stacked: Any, weights: torch.Tensor,
 class FederationPlan:
     """Flattening/aggregation plan for one (net, topology), built once
     from a template of the client params and reused every round.
-    ``chunk_size`` enables ``aggregate_chunked``."""
+    ``chunk_size`` enables ``aggregate_chunked``; ``mesh`` shards the
+    rounds' client rows over its data axes (the single-device path when
+    they do not divide)."""
 
     def __init__(self, groups: Sequence[ProfileGroup], net: str,
                  n_layers: int, template: Dict[str, Dict[str, Any]],
-                 chunk_size: Optional[int] = None):
+                 chunk_size: Optional[int] = None, mesh: Any = None):
+        mesh_mod.check_mesh(mesh)
         self.net = net
         self.n_layers = n_layers
+        self.mesh = mesh
         if chunk_size is not None and int(chunk_size) < 1:
             raise ValueError(f"chunk_size {chunk_size} must be >= 1")
         self.chunk_size = None if chunk_size is None else int(chunk_size)
@@ -205,6 +219,44 @@ class FederationPlan:
                            for gname, ls in owned.items()}
         self._groups_order = [g.name for g in groups]
         self._index_cache: Dict[torch.device, Tuple] = {}
+        # client-row placement: sanitize drops the axes (None: the
+        # single-device path) when the rows do not divide by the mesh or
+        # the mesh has one rank; the chunk stream shards every group's
+        # stack, so it needs every group's rows to divide
+        self._client_axes = (None if mesh is None or self.n_rows == 0
+                             else client_axes(mesh, self.n_rows))
+        group_sizes = [r1 - r0 for r0, r1 in self._group_rows.values()
+                       if r1 > r0]
+        self._chunk_axes = (None if mesh is None or self.chunk_size is None
+                            or not group_sizes
+                            else group_client_axes(mesh, group_sizes))
+
+    def _shard(self, axes) -> Tuple[int, int]:
+        """(this rank's block index, the number of blocks) along
+        ``axes``."""
+        if not mesh_mod.in_mesh(self.mesh):
+            raise RuntimeError("a rank outside the plan's mesh runs no "
+                               "part of its round")
+        return mesh_mod.shard_of(self.mesh, axes)
+
+    def row_block(self) -> Tuple[int, int]:
+        """[lo, hi) of the dense buffer's rows this rank flattens and
+        contracts: all of them on the single-device path."""
+        if self._client_axes is None:
+            return 0, self.n_rows
+        i, n = self._shard(self._client_axes)
+        per = self.n_rows // n
+        return i * per, (i + 1) * per
+
+    def group_block(self, gname: str) -> Tuple[int, int]:
+        """[lo, hi) of group ``gname``'s rows (relative to the group) this
+        rank streams in a chunked round: all of them unsharded."""
+        r0, r1 = self._group_rows[gname]
+        if self._chunk_axes is None:
+            return 0, r1 - r0
+        i, n = self._shard(self._chunk_axes)
+        per = (r1 - r0) // n
+        return i * per, (i + 1) * per
 
     def _indices(self, device: torch.device):
         """Per-layer owner rows/cids, per-copy maps and the row -> client
@@ -287,20 +339,27 @@ class FederationPlan:
 
     # -- flatten / unflatten ----------------------------------------------------
     def flatten(self, net_params: Dict[str, Dict[str, Any]],
-                device: torch.device) -> torch.Tensor:
+                device: torch.device,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """The dense ``theta [K, n_cols]`` (rows padded to
         ``row_stride``): each group's copies of its owned layers' leaves
-        in their column runs, zero elsewhere."""
-        theta = padded_rows(self.n_rows, self.n_cols, device)
+        in their column runs, zero elsewhere. ``rows`` = (lo, hi) builds
+        only that row block, ``theta[lo:hi]``."""
+        lo, hi = (0, self.n_rows) if rows is None else rows
+        theta = padded_rows(hi - lo, self.n_cols, device)
         for gname in self._groups_order:
             r0, r1 = self._group_rows[gname]
+            a, b = max(r0, lo), min(r1, hi)
+            if a >= b:
+                continue
+            dst = theta[a - lo:b - lo]
             for l, (c0, w) in sorted(self._col_runs.items()):
                 if l not in self._owned[gname]:
-                    theta[r0:r1, c0:c0 + w].zero_()
+                    dst[:, c0:c0 + w].zero_()
                     continue
                 for _, x in tree_items(net_params[gname][str(l)]):
-                    flat = x.reshape(r1 - r0, -1)
-                    theta[r0:r1, c0:c0 + flat.shape[1]].copy_(flat)
+                    flat = x.reshape(r1 - r0, -1)[a - r0:b - r0]
+                    dst[:, c0:c0 + flat.shape[1]].copy_(flat)
                     c0 += flat.shape[1]
         return theta
 
@@ -343,6 +402,20 @@ class FederationPlan:
                 use_kernel: bool) -> torch.Tensor:
         return kops.clustered_agg(A, theta) if use_kernel else A @ theta
 
+    def _contract(self, net_params, A: torch.Tensor, use_kernel: bool
+                  ) -> torch.Tensor:
+        """``A @ theta``, replicated: one contraction of the whole buffer,
+        or on a sharded plan this rank's row block of theta against the
+        matching columns of A, summed over the data axes."""
+        if self._client_axes is None:
+            return self._reduce(A, self.flatten(net_params, A.device),
+                                use_kernel)
+        lo, hi = self.row_block()
+        part = self._reduce(A[:, lo:hi].contiguous(),
+                            self.flatten(net_params, A.device, (lo, hi)),
+                            use_kernel)
+        return mesh_mod.all_reduce_sum(part, self.mesh, self._client_axes)
+
     def aggregate(self, net_params: Dict[str, Dict[str, Any]],
                   A: np.ndarray, seg_ids: np.ndarray,
                   use_kernel: bool = False,
@@ -353,7 +426,7 @@ class FederationPlan:
         device = _params_device(net_params)
         _, _, copy_cid, _ = self._indices(device)
         A_t = torch.as_tensor(A, dtype=torch.float32, device=device)
-        agg = self._reduce(A_t, self.flatten(net_params, device), use_kernel)
+        agg = self._contract(net_params, A_t, use_kernel)
         mask = (None if cohort_mask is None else
                 torch.as_tensor(np.asarray(cohort_mask, bool), device=device))
         return self.unflatten(agg, torch.as_tensor(seg_ids, device=device),
@@ -370,8 +443,7 @@ class FederationPlan:
         _, _, copy_cid, _ = self._indices(weights.device)
         A, seg_ids = self.device_weight_segments(
             weights, labels, num_clusters, participation=cohort_mask)
-        agg = self._reduce(A, self.flatten(net_params, weights.device),
-                           use_kernel)
+        agg = self._contract(net_params, A, use_kernel)
         return self.unflatten(agg, seg_ids, *self._recv_args(
             net_params, cohort_mask, copy_cid))
 
@@ -388,7 +460,9 @@ class FederationPlan:
         weight mass is zero but that have participating members: their
         members switch to their ``part_all`` value (1 in the cohort, 0
         outside), the dense round's uniform-over-participants
-        fallback."""
+        fallback. On a sharded plan the rank streams its block of every
+        group's rows (``group_block``) and the partial ``(acc, mass)``
+        are summed over the data axes."""
         C = int(num_clusters)
         c = self.chunk_size
         dev = w_all.device
@@ -402,7 +476,8 @@ class FederationPlan:
         for gname in self._groups_order:
             r0, r1 = self._group_rows[gname]
             Kg = r1 - r0
-            if Kg == 0:
+            b0, b1 = self.group_block(gname)
+            if b1 <= b0:
                 continue
             leaves = []                      # (column offset, [Kg, size])
             for l, (c0, w) in sorted(self._col_runs.items()):
@@ -413,8 +488,8 @@ class FederationPlan:
                         c0 += flat.shape[1]
                 else:
                     theta_c[:, c0:c0 + w].zero_()
-            for lo in range(0, Kg, c):
-                r = min(c, Kg - lo)
+            for lo in range(b0, b1, c):
+                r = min(c, b1 - lo)
                 for off, flat in leaves:
                     theta_c[:r, off:off + flat.shape[1]].copy_(flat[lo:lo + r])
                 if r < c:
@@ -428,6 +503,9 @@ class FederationPlan:
                     A_c[seg, cols[:r]] = torch.where(zero_seg[seg], fb_c, w_c)
                 acc += self._reduce(A_c, theta_c, use_kernel)
                 mass += A_c.sum(1)
+        if self._chunk_axes is not None:
+            mesh_mod.all_reduce_sum(acc, self.mesh, self._chunk_axes)
+            mesh_mod.all_reduce_sum(mass, self.mesh, self._chunk_axes)
         return acc, mass
 
     def aggregate_chunked(self, net_params: Dict[str, Dict[str, Any]],
@@ -466,8 +544,11 @@ class FederationPlan:
     def dense_buffer_bytes(self) -> int:
         """float32 bytes allocated for the dense ``theta [K, D]`` flat
         client buffer of the dense rounds, rows padded to ``row_stride``
-        (the O(clients) term the chunk stream removes)."""
-        return 4 * self.n_rows * self.row_stride
+        (the O(clients) term the chunk stream removes); on a sharded plan
+        one rank's row block, 1/n of it."""
+        lo, hi = ((0, self.n_rows) if self._client_axes is None
+                  else self.row_block())
+        return 4 * (hi - lo) * self.row_stride
 
     def chunked_buffer_bytes(self, num_clusters: int) -> int:
         """float32 bytes allocated for the chunk stream's working set:
@@ -490,8 +571,12 @@ def _params_device(net_params) -> torch.device:
 
 
 def _plan_key(groups: Sequence[ProfileGroup], net: str, n_layers: int,
-              template: Dict[str, Dict[str, Any]],
-              chunk_size: Optional[int] = None) -> Tuple:
+              template: Dict[str, Dict[str, Any]], mesh: Any = None,
+              chunk_size: Optional[int] = None,
+              cohort_size: Optional[int] = None) -> Tuple:
+    # the mesh (its ranks, shape and axis names: a mesh rebuilt over the
+    # same ranks hits the same plan), the chunk size and the cohort size
+    # join the topology and the leaf layout
     layout = tuple(
         (g.name, tuple(
             (l, tuple((path, tuple(x.shape)) for path, x in tree_items(tree)))
@@ -499,17 +584,22 @@ def _plan_key(groups: Sequence[ProfileGroup], net: str, n_layers: int,
         for g in groups)
     return (net, n_layers, tuple(
         (g.name, g.cut.as_tuple(), tuple(g.client_ids)) for g in groups),
-        layout, chunk_size)
+        layout, mesh_mod.mesh_key(mesh), chunk_size, cohort_size)
 
 
 def get_federation_plan(groups: Sequence[ProfileGroup], net: str,
                         n_layers: int, template: Dict[str, Dict[str, Any]],
-                        plan_cache: Dict,
-                        chunk_size: Optional[int] = None) -> FederationPlan:
-    key = _plan_key(groups, net, n_layers, template, chunk_size)
+                        plan_cache: Dict, mesh: Any = None,
+                        chunk_size: Optional[int] = None,
+                        cohort_size: Optional[int] = None) -> FederationPlan:
+    """The cached plan of this topology, mesh, chunk size and cohort size
+    (the number of clients a cohort round samples, which only keys the
+    cache, as in the reference), built on first use."""
+    key = _plan_key(groups, net, n_layers, template, mesh, chunk_size,
+                    cohort_size)
     if key not in plan_cache:
         plan_cache[key] = FederationPlan(groups, net, n_layers, template,
-                                         chunk_size=chunk_size)
+                                         chunk_size=chunk_size, mesh=mesh)
     return plan_cache[key]
 
 
@@ -533,9 +623,12 @@ def federate_client_params(groups: Sequence[ProfileGroup],
     ``chunk_size=c`` streams the round in c-client chunks;
     ``cohort_mask`` ([n_clients] bool) runs a sampled-cohort round, with
     ``weights`` already renormalized over the cohort
-    (``kld.cohort_federation_weights_np``, zero outside it). Returns a
-    new client_params with the aggregated copies broadcast back."""
-    _unsupported(mesh)
+    (``kld.cohort_federation_weights_np``, zero outside it). ``mesh``
+    (a ``DeviceMesh``; every rank of it calls the round) shards the
+    fused round's client rows; the legacy loop runs unsharded, as the
+    reference's does. Returns a new client_params with the aggregated
+    copies broadcast back."""
+    mesh_mod.check_mesh(mesh)
     n_layers = n_layers or N_LAYERS
     if not fused:
         if chunk_size is not None or cohort_mask is not None:
@@ -548,11 +641,14 @@ def federate_client_params(groups: Sequence[ProfileGroup],
     plan_cache = {} if plan_cache is None else plan_cache
     weights = np.asarray(weights)
     cluster_labels = np.asarray(cluster_labels)
+    cohort_size = (None if cohort_mask is None
+                   else int(np.asarray(cohort_mask, bool).sum()))
     out = {gname: dict(nets) for gname, nets in client_params.items()}
     for net, n_lay in n_layers.items():
         template = {g.name: client_params[g.name][net] for g in groups}
         plan = get_federation_plan(groups, net, n_lay, template, plan_cache,
-                                   chunk_size=chunk_size)
+                                   mesh=mesh, chunk_size=chunk_size,
+                                   cohort_size=cohort_size)
         if plan.n_rows == 0:
             continue
         if chunk_size is not None:
@@ -593,9 +689,9 @@ def federate_client_params_device(
     (``clustering.k_selection_bound``). ``cohort_mask`` ([K] bool device
     tensor, weights renormalized over the cohort) runs a sampled-cohort
     round and comes with its ``cohort_size``, the number of clients
-    sampled (the reference keys its compiled programs on it; here it
-    only has to come with the mask)."""
-    _unsupported(mesh)
+    sampled (it keys the plan cache, as in the reference). ``mesh``
+    shards the round's client rows."""
+    mesh_mod.check_mesh(mesh)
     if (cohort_mask is None) != (cohort_size is None):
         raise ValueError("cohort_mask and cohort_size come together")
     n_layers = n_layers or N_LAYERS
@@ -604,7 +700,8 @@ def federate_client_params_device(
     for net, n_lay in n_layers.items():
         template = {g.name: client_params[g.name][net] for g in groups}
         plan = get_federation_plan(groups, net, n_lay, template, plan_cache,
-                                   chunk_size=chunk_size)
+                                   mesh=mesh, chunk_size=chunk_size,
+                                   cohort_size=cohort_size)
         if plan.n_rows == 0:
             continue
         aggregate = (plan.aggregate_device if chunk_size is None
@@ -678,8 +775,8 @@ def fedavg_uniform(groups: Sequence[ProfileGroup],
     the sizes renormalize over the cohort and non-members sit the round
     out. ``fused=False`` runs the legacy per-layer loop of
     ``federate_client_params`` (with ``use_kernel``, K1's S = 1 entry
-    point once per layer and leaf)."""
-    _unsupported(mesh)
+    point once per layer and leaf). ``mesh`` shards the fused round as it
+    shards a clustered one."""
     sizes = np.asarray(sizes, np.float64)
     if cohort_mask is not None:
         sizes = sizes * np.asarray(cohort_mask, bool)
@@ -687,5 +784,5 @@ def fedavg_uniform(groups: Sequence[ProfileGroup],
                                   np.zeros(len(sizes), np.int64),
                                   n_layers=n_layers, use_kernel=use_kernel,
                                   fused=fused, plan_cache=plan_cache,
-                                  chunk_size=chunk_size,
+                                  chunk_size=chunk_size, mesh=mesh,
                                   cohort_mask=cohort_mask)

@@ -40,8 +40,17 @@ re-stages the dataset and empties the federation plan cache.
 
 ``generate`` runs the generator's split program in eval mode.
 
-Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
-item: mesh-sharded federation (M10).
+Client-sharded federation (``fed_mesh=``, a ``DeviceMesh`` from
+``launch.mesh.make_federation_mesh``): every rank of the mesh builds the
+same trainer and holds the whole state and data, as the reference
+replicates its state on the mesh; every rank runs the same steps, and
+only the federation rounds shard the client rows (``core.federation``).
+Before each round the mesh's first rank broadcasts its whole state and
+EMA, and after the clustering its labels, weights, k and cohort, so that
+the ranks' partial sums come from one state: the card's convolution
+gradients are not deterministic, and replicas that ran the same steps
+can differ in their last bits. ``federate(mesh=None)`` forces the
+single-device round on a trainer with a mesh.
 """
 from __future__ import annotations
 
@@ -73,6 +82,7 @@ from repro_torch.core.splitting import (ProfileGroup, client_owned_layers,
                                         server_union_span)
 from repro_torch.data.partition import ClientSpec
 from repro_torch.data.pipeline import sample_batch, stage_clients
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import gan
 from repro_torch.models.gan import (DISC_LAYER_DEFS, DISC_MIDDLE_FEATURES,
                                     GEN_LAYER_DEFS, Z_DIM)
@@ -454,9 +464,11 @@ class HuSCFTrainer:
                  device="cuda",
                  batch_source: Optional[Callable[[], Dict]] = None,
                  fed_mesh: Any = None):
-        if fed_mesh is not None:
-            raise NotImplementedError("mesh-sharded federation is not "
-                                      "ported (ROADMAP M10, mesh code)")
+        # fed_mesh: a DeviceMesh for client-sharded federation rounds
+        # (launch.mesh.make_federation_mesh); None = the single-device
+        # rounds. It is a topology, so it rides the trainer, not the config
+        mesh_mod.check_mesh(fed_mesh)
+        self.fed_mesh = fed_mesh
         self.device = resolve_device(device)
         self.clients = list(clients)
         self.cfg = config
@@ -496,7 +508,8 @@ class HuSCFTrainer:
                             if self.device.type == "cuda" else None)
         self.state = self._init_state(
             torch.Generator().manual_seed(config.seed))
-        self._dataset = stage_clients(self.groups, self.clients, self.device)
+        self._dataset = stage_clients(self.groups, self.clients, self.device,
+                                      mesh=fed_mesh)
         self._batch_source = batch_source
         # generate()'s latent draws: numpy, seeded as in the reference, so
         # one state gives the reference's images
@@ -527,6 +540,7 @@ class HuSCFTrainer:
         self._rows = {g.name: torch.as_tensor(g.client_ids, device=self.device)
                       for g in self.groups}
         self._fed_plans: Dict = {}
+        self._round_mesh = None          # the sharded mesh of this round
         self._build_applies()
         self.fed_round = 0
         self.epoch = 0
@@ -748,10 +762,12 @@ class HuSCFTrainer:
                                "step: the EMA is empty")
         return self._mid_ema.detach().cpu().clone().numpy()
 
+    _MESH_DEFAULT = object()     # sentinel: mesh=None must stay sayable
+
     def federate(self, use_label_kld: bool = False,
                  init_centers: Optional[Dict[int, torch.Tensor]] = None,
-                 cohort_ids: Optional[torch.Tensor] = None
-                 ) -> Dict[str, Any]:
+                 cohort_ids: Optional[torch.Tensor] = None,
+                 mesh: Any = _MESH_DEFAULT) -> Dict[str, Any]:
         """Stages 3+4; returns diagnostics.
 
         With ``cfg.cohort_size`` each round first samples its cohort from
@@ -761,9 +777,19 @@ class HuSCFTrainer:
         device unless ``cfg.fused_cluster`` is False or
         ``use_label_kld`` is set, which take the host numpy path.
 
+        ``mesh`` overrides the trainer's ``fed_mesh`` for this round;
+        ``mesh=None`` forces the single-device round. On a mesh of more
+        than one rank every rank of it calls ``federate``.
+
         Tests feed the reference's draws: ``init_centers`` maps each
         candidate k to the k-means++ centres of the device path, and
         ``cohort_ids`` replaces this round's cohort draw."""
+        mesh = self.fed_mesh if mesh is self._MESH_DEFAULT else mesh
+        mesh_mod.check_mesh(mesh)
+        self._round_mesh = mesh if mesh is not None and mesh.size() > 1 \
+            else None
+        if self._round_mesh is not None:
+            self.sync_replicas(self._round_mesh)
         self.fed_round += 1
         recut = None
         if (self.cfg.reoptimize_every is not None
@@ -780,6 +806,8 @@ class HuSCFTrainer:
             else:
                 cohort_ids = torch.as_tensor(cohort_ids, dtype=torch.int32,
                                              device=self.device)
+            if self._round_mesh is not None:
+                mesh_mod.broadcast_from_first([cohort_ids], self._round_mesh)
             cohort_mask = self.registry.cohort_mask(cohort_ids)
         elif cohort_ids is not None:
             raise ValueError("cohort_ids given to a trainer without "
@@ -810,9 +838,18 @@ class HuSCFTrainer:
                               n_layers={net: N_LAYERS[net]},
                               use_kernel=self.cfg.use_kernel,
                               plan_cache=self._fed_plans,
-                              chunk_size=self.cfg.agg_chunk, **kwargs)
+                              chunk_size=self.cfg.agg_chunk,
+                              mesh=self._round_mesh, **kwargs)
             self.state[net]["client"] = {g.name: out[g.name][net]
                                          for g in self.groups}
+
+    def sync_replicas(self, mesh) -> None:
+        """Overwrite this rank's trainer state and middle-activation EMA,
+        in place, with the mesh's first rank's (one broadcast per
+        dtype). In place, the fused epoch's captured graphs keep reading
+        the same tensors."""
+        tensors = [x for _, x in _carry_items(self.state)]
+        mesh_mod.broadcast_flat(tensors + [self._mid_ema], mesh)
 
     def _federate_clustered(self, init_centers, cohort_mask
                             ) -> Dict[str, Any]:
@@ -827,6 +864,13 @@ class HuSCFTrainer:
         weights, klds = kld_mod.activation_weights(
             acts, self._sizes_dev, labels, bound, self.cfg.beta,
             cohort_mask=cohort_mask)
+        if self._round_mesh is not None:
+            # the first rank's clustering for every rank of the round
+            ks = torch.tensor([float(k_sel), float(sil)], dtype=torch.float64,
+                              device=self.device)
+            mesh_mod.broadcast_from_first([labels, weights, klds, ks],
+                                          self._round_mesh)
+            k_sel, sil = int(ks[0]), float(ks[1])
         self._federate_nets(federate_client_params_device, weights, labels,
                             bound, cohort_mask=cohort_mask,
                             cohort_size=self.cfg.cohort_size)
@@ -855,10 +899,21 @@ class HuSCFTrainer:
         if cohort_mask is not None:
             weights = kld_mod.cohort_federation_weights_np(
                 klds, self.sizes, cl.labels, cohort_mask, self.cfg.beta)
-        self._federate_nets(federate_client_params, weights, cl.labels,
+        k_sel, sil, labels = cl.k, cl.silhouette, cl.labels
+        if self._round_mesh is not None:
+            # the first rank's clustering for every rank of the round
+            t = [torch.as_tensor(np.asarray(a, np.float64), device=self.device)
+                 for a in (labels, weights, klds, [k_sel, sil])]
+            mesh_mod.broadcast_from_first(t, self._round_mesh)
+            labels, weights, klds = (
+                x.cpu().numpy().astype(a.dtype) for x, a in
+                zip(t[:3], (np.asarray(labels), np.asarray(weights),
+                            np.asarray(klds))))
+            k_sel, sil = int(t[3][0]), float(t[3][1])
+        self._federate_nets(federate_client_params, weights, labels,
                             cohort_mask=cohort_mask)
-        return {"round": self.fed_round, "mode": "clustered", "k": cl.k,
-                "silhouette": cl.silhouette, "labels": cl.labels,
+        return {"round": self.fed_round, "mode": "clustered", "k": k_sel,
+                "silhouette": sil, "labels": labels,
                 "weights": weights, "klds": klds}
 
     # -- online cut re-optimization and population churn -------------------
@@ -1083,7 +1138,8 @@ class HuSCFTrainer:
         self.groups = new_groups
         self.sizes = np.array([c.n for c in self.clients], np.int64)
         self.registry = ClientRegistry.from_clients(self.clients)
-        self._dataset = stage_clients(self.groups, self.clients, self.device)
+        self._dataset = stage_clients(self.groups, self.clients, self.device,
+                                      mesh=self.fed_mesh)
         self.state = new_state
         self._mid_ema = new_ema
         self._sizes_dev = torch.as_tensor(self.sizes, dtype=torch.float32,

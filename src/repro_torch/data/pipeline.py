@@ -13,15 +13,23 @@ Layout per group (clients in the group's canonical order):
   * labels [K_p, n_max] int32 — padding holds ``-1``
   * counts [K_p] int32 — indices are drawn in [0, counts[k]), so
     padding rows are never read
+
+With a mesh (``stage_clients(..., mesh=)``) every rank stages every
+group's rows, as the reference replicates the trainer's state on its
+mesh: every rank runs the whole training step, and only the federation
+round shards the client rows. (The reference also shards the dataset's
+rows over the mesh's client axes; keeping only a rank's rows comes with
+the client-sharded training step.)
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Dict, Sequence, Tuple
+from typing import TYPE_CHECKING, Any, Dict, Sequence, Tuple
 
 import torch
 
 from repro_torch.data.partition import ClientSpec, padded_stack
+from repro_torch.launch.mesh import check_mesh
 
 if TYPE_CHECKING:
     from repro_torch.core.splitting import ProfileGroup
@@ -42,8 +50,10 @@ class DeviceDataset:
 
 def stage_clients(groups: Sequence["ProfileGroup"],
                   clients: Sequence[ClientSpec],
-                  device) -> DeviceDataset:
-    """Pad + upload every group's client datasets."""
+                  device, mesh: Any = None) -> DeviceDataset:
+    """Pad + upload every group's client datasets (on a ``mesh``, every
+    rank all of them)."""
+    check_mesh(mesh)
     images, labels, counts = {}, {}, {}
     for g in groups:
         imgs, labs, cnt = padded_stack([clients[cid] for cid in g.client_ids])

@@ -1,0 +1,339 @@
+"""Meshes of ranks on ``torch.distributed`` (port of ``repro.launch.mesh``).
+
+The port runs the reference's ``shard_map`` + ``psum`` as SPMD ranks:
+every rank is a process that runs the same program on its own tensors,
+its share of a sharded computation is rank-local code, and a ``psum``
+becomes ``all_reduce``. A mesh is a ``torch.distributed``
+``DeviceMesh`` over the ranks of the default process group; its axis
+names are the reference's (``data``; ``pod``, ``data``, ``model`` on the
+production meshes), so ``sharding.policy`` reads it as it reads a JAX
+mesh.
+
+``run_ranks(n, fn, *args)`` spawns ``n`` ranks and runs ``fn(*args)`` in
+each (the counterpart of the reference's forced host devices, which its
+tests use to build meshes of 1-8 devices in one process). The backend
+is picked explicitly and logged: NCCL when every rank has a GPU of its
+own; gloo on the CPU and when ranks share a GPU, since NCCL refuses two
+ranks on one device. Only ``all_reduce`` and ``broadcast`` are used,
+which both backends take on CUDA tensors (gloo stages them through the
+host).
+
+``make_federation_mesh(n)`` is the 1-D ``("data",)`` mesh over the
+first ``n`` ranks of the process group. In a process without one, a
+1-rank mesh starts a world of one rank on an in-process store, so that
+``mesh=`` with one rank works anywhere and takes the unsharded path.
+
+The hardware constants are one NVIDIA H100 SXM5 80GB's at its 700 W
+power limit (NVIDIA's data sheet, dense rates).
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import shutil
+import sys
+import tempfile
+import time
+import traceback
+from queue import Empty
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.sharding.policy import data_axes
+
+# one NVIDIA H100 SXM5 80GB at a 700 W power limit, for the roofline
+# analysis (a card set below 700 W runs slower under load)
+CARD = "NVIDIA H100 80GB HBM3"
+CARD_POWER_LIMIT_W = 700.0
+PEAK_FLOPS_BF16 = 989e12        # dense bf16 on the tensor cores, per card
+HBM_BW = 3.35e12                # HBM3 bytes/s per card
+NVLINK_BW = 450e9               # NVLink 4 bytes/s per direction, per card
+CARD_HBM_BYTES = 80 * 1024 ** 3
+
+# the production meshes: one HGX board's 8 cards share an NVLink domain,
+# so the tensor-parallel axis (``model``, an all-reduce per layer) stays
+# inside one board, and ``data`` spans boards over the network; the TPU
+# v5e's (16, 16) would put a 16-way tensor-parallel all-reduce across two
+# boards' network links
+PRODUCTION_SHAPES = {False: ((32, 8), ("data", "model")),
+                     True: ((2, 32, 8), ("pod", "data", "model"))}
+
+
+def log(msg: str) -> None:
+    print(f"[mesh] {msg}", file=sys.stderr, flush=True)
+
+
+def world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _ensure_group() -> None:
+    """A world of one rank on an in-process store, where this process
+    has no process group."""
+    if not dist.is_initialized():
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+
+
+def _mesh(device_type: str, shape: Sequence[int], names: Sequence[str],
+          ranks: Optional[Sequence[int]] = None):
+    from torch.distributed.device_mesh import DeviceMesh
+    n = 1
+    for s in shape:
+        n *= int(s)
+    ranks = list(range(n)) if ranks is None else list(ranks)
+    return DeviceMesh(device_type, torch.tensor(ranks).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(names))
+
+
+def make_federation_mesh(n_ranks: Optional[int] = None,
+                         device_type: str = "cuda"):
+    """1-D ``("data",)`` mesh over the first ``n_ranks`` ranks of the
+    process group (None: all of them), for client-sharded federation
+    rounds (``core.federation``, ``mesh=``). Every rank of the group
+    calls it; a rank past ``n_ranks`` holds no coordinate on it
+    (``in_mesh`` is False) and takes no part in its rounds."""
+    if n_ranks is None or int(n_ranks) == 1:
+        _ensure_group()
+    have = world_size()
+    n = have if n_ranks is None else int(n_ranks)
+    if not 1 <= n <= have:
+        raise ValueError(f"requested {n} ranks, the process group has "
+                         f"{have} (start more with run_ranks(n, ...) or "
+                         "torchrun --nproc-per-node n)")
+    return _mesh(device_type, (n,), ("data",))
+
+
+def make_host_mesh(device_type: str = "cpu"):
+    """1-rank ``("data", "model")`` mesh for CPU tests and examples (no
+    sharding)."""
+    _ensure_group()
+    return _mesh(device_type, (1, 1), ("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The production mesh over a process group of 256 ranks, (data=32,
+    model=8), or of 512, (pod=2, data=32, model=8): ``pod`` is an outer
+    data-parallel axis. The dry runs build it under a fake process group
+    of that size."""
+    shape, names = PRODUCTION_SHAPES[bool(multi_pod)]
+    need = 1
+    for s in shape:
+        need *= s
+    if world_size() != need:
+        raise ValueError(f"the production mesh {dict(zip(names, shape))} "
+                         f"needs {need} ranks, the process group has "
+                         f"{world_size()}")
+    return _mesh(device_type, shape, names)
+
+
+def check_mesh(mesh) -> None:
+    """``mesh`` is None or a ``DeviceMesh``; anything else is a caller's
+    error."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                        f"(launch.mesh.make_federation_mesh) or None, got "
+                        f"{type(mesh).__name__}")
+
+
+def mesh_key(mesh) -> Optional[Tuple]:
+    """What a mesh is for a cache: its device type, its ranks laid out in
+    its shape, and its axis names; a mesh rebuilt over the same ranks
+    has the same key."""
+    if mesh is None:
+        return None
+    return (mesh.device_type, tuple(mesh.mesh.shape),
+            tuple(mesh.mesh.flatten().tolist()), tuple(mesh.mesh_dim_names))
+
+
+def in_mesh(mesh) -> bool:
+    return mesh.get_coordinate() is not None
+
+
+def _axes(axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def shard_of(mesh, axes) -> Tuple[int, int]:
+    """(this rank's index, the number of shards) along the mesh axes
+    ``axes`` (a name or a tuple of names, major first), as
+    ``shard_map`` numbers the blocks of a dim sharded over them."""
+    idx, count = 0, 1
+    for ax in _axes(axes):
+        size = mesh.size(mesh.mesh_dim_names.index(ax))
+        idx = idx * size + mesh.get_local_rank(ax)
+        count *= size
+    return idx, count
+
+
+def all_reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Sum ``x`` in place over the ranks along ``axes`` (the reference's
+    ``psum``), one ``all_reduce`` per axis. A row-strided ``x`` (rows
+    padded past its width, as the federation plan's buffers and K1's
+    outputs are) is reduced with its pad columns, in one piece."""
+    whole = x
+    if not x.is_contiguous():
+        if x.ndim != 2 or x.stride(1) != 1 or x.stride(0) < x.shape[1]:
+            raise ValueError(f"all_reduce_sum takes contiguous rows, got "
+                             f"strides {x.stride()} at {tuple(x.shape)}")
+        whole = x.as_strided((x.shape[0], x.stride(0)), (x.stride(0), 1))
+    for ax in _axes(axes):
+        dist.all_reduce(whole, op=dist.ReduceOp.SUM, group=mesh.get_group(ax))
+    return x
+
+
+def broadcast_from_first(tensors: Sequence[torch.Tensor], mesh,
+                         axes=None) -> None:
+    """Overwrite every tensor in place with its value on the mesh's first
+    rank along ``axes`` (default: the data axes, 'pod' then 'data'), one
+    ``broadcast`` per tensor and axis."""
+    if axes is None:
+        axes = data_axes(mesh)
+    for ax in _axes(axes):
+        group = mesh.get_group(ax)
+        src = dist.get_global_rank(group, 0)
+        for t in tensors:
+            dist.broadcast(t, src=src, group=group)
+
+
+def broadcast_flat(tensors: Sequence[torch.Tensor], mesh,
+                   axes=None) -> None:
+    """``broadcast_from_first`` for many tensors in a few collectives:
+    the tensors of each dtype go packed into one flat buffer, which is
+    broadcast and copied back in place."""
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault((t.dtype, t.device), []).append(t)
+    for (dtype, device), ts in by_dtype.items():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        broadcast_from_first([flat], mesh, axes)
+        off = 0
+        for t in ts:
+            n = t.numel()
+            t.copy_(flat[off:off + n].view(t.shape))
+            off += n
+
+
+# ---------------------------------------------------------------------------
+# spawning ranks
+# ---------------------------------------------------------------------------
+
+def pick_backend(n_ranks: int, device_type: str) -> Tuple[str, str]:
+    """(backend, reason) for ``n_ranks`` ranks on ``device_type``: NCCL
+    when each rank has a GPU of its own; gloo on the CPU, and when ranks
+    share a GPU (NCCL refuses two ranks on one device)."""
+    if device_type == "cpu":
+        return "gloo", "ranks on the CPU"
+    n_gpu = torch.cuda.device_count()
+    if n_gpu >= n_ranks:
+        return "nccl", f"one GPU per rank ({n_ranks} of {n_gpu})"
+    return "gloo", f"{n_ranks} ranks share {n_gpu} GPU(s)"
+
+
+def rank_device(device_type: str) -> torch.device:
+    """The device this rank runs on: the CPU, or GPU ``rank % count``."""
+    if device_type == "cpu":
+        return torch.device("cpu")
+    return torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+
+
+def init_rank(rank: int, n_ranks: int, init_method: str, device_type: str,
+              backend: Optional[str] = None) -> str:
+    """Join the process group as ``rank`` of ``n_ranks``; returns the
+    backend."""
+    backend = backend or pick_backend(n_ranks, device_type)[0]
+    kw = {}
+    if device_type != "cpu":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        if backend == "nccl":
+            kw["device_id"] = dev
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=n_ranks, rank=rank, **kw)
+    return backend
+
+
+def _rank_main(rank: int, n_ranks: int, init_method: str, device_type: str,
+               backend: str, payload: str, queue) -> None:
+    torch.set_num_threads(1)
+    try:
+        with open(payload, "rb") as f:
+            fn, args = pickle.load(f)
+        init_rank(rank, n_ranks, init_method, device_type, backend)
+        out = fn(*args)
+        queue.put((rank, True, out))
+    except BaseException:
+        queue.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(n_ranks: int, fn: Callable, *args: Any,
+              device_type: str = "cuda", timeout: float = 900.0
+              ) -> List[Any]:
+    """Run ``fn(*args)`` in ``n_ranks`` spawned ranks of one process group
+    and return each rank's result, in rank order.
+
+    ``fn`` and ``args`` are pickled once, by reference (a module-level
+    function) and by value, into a file the ranks read (written into a
+    spawned child's pipe, a large argument would hold each start until
+    the child before it had imported torch); each rank joins the group
+    through a ``file://`` store in a fresh temporary directory (no port
+    to race for), runs with one torch thread, and on ``cuda`` binds GPU
+    ``rank % count``. A rank that raises fails the call with its
+    traceback; the other ranks are stopped."""
+    import multiprocessing as mp
+    if device_type != "cpu" and not torch.cuda.is_available():
+        raise RuntimeError(f"run_ranks on {device_type!r} but CUDA is not "
+                           "available; pass device_type='cpu'")
+    backend, reason = pick_backend(n_ranks, device_type)
+    log(f"{n_ranks} ranks on {device_type}: {backend} ({reason})")
+    ctx = mp.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="ranks-")
+    queue = ctx.Queue()
+    init = "file://" + os.path.join(tmp, "store")
+    payload = os.path.join(tmp, "payload.pkl")
+    with open(payload, "wb") as f:
+        pickle.dump((fn, args), f)
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, n_ranks, init, device_type, backend,
+                               payload, queue), daemon=True)
+             for r in range(n_ranks)]
+    results: dict = {}
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        while len(results) < n_ranks:
+            try:
+                rank, ok, out = queue.get(timeout=1.0)
+            except Empty:                   # check on the ranks
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in results]
+                if dead:
+                    raise RuntimeError(f"rank {dead[0]} exited with code "
+                                       f"{procs[dead[0]].exitcode} before "
+                                       "reporting") from None
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{n_ranks} ranks did not finish in "
+                                       f"{timeout:.0f}s") from None
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} of {n_ranks} failed:\n{out}")
+            results[rank] = out
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        queue.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [results[r] for r in range(n_ranks)]

@@ -25,6 +25,17 @@ waits on the host until the tokens are read back.
   PYTHONPATH=src python -m repro_torch.launch.serve_split --mode lm \\
       --batch 2 --prompt-len 32 --gen 16
 
+Sharded GAN serving (``SplitGanEngine(mesh=, policy=)``): every rank of
+the mesh holds the whole weights and calls ``serve`` with the whole
+cohort. When the mesh's data axes divide every active bucket
+(``sharding.policy.cohort_axes``), rank r runs its slice of every
+group's bucket rows through the program (rows do not interact:
+eval-mode BatchNorm works per element), and one ``all_reduce`` of the
+zero-filled ``[bucket, ...]`` outputs gives every rank the whole
+cohort; otherwise the engine runs unsharded. A convolution over a slice
+of a bucket may take another algorithm than over all of it, so sharded
+images agree with unsharded ones to rounding.
+
 ``--device`` defaults to ``cuda`` and raises without a GPU; ``--device
 cpu`` runs the kernels' plain versions. Float32 products and
 convolutions run in full float32 (TF32 off).
@@ -46,9 +57,12 @@ from repro_torch.core.segments import (SplitProgram, compile_split_program,
 from repro_torch.core.splitting import (ProfileGroup, bucket_size,
                                         group_by_profile, server_union_span)
 from repro_torch.kernels import ops, ref
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import attention as A
 from repro_torch.models import nn
 from repro_torch.models.gan import DISC_LAYER_DEFS, GEN_LAYER_DEFS, Z_DIM
+from repro_torch.sharding.policy import (ShardingPolicy, activation_sharding,
+                                         cohort_axes)
 from repro_torch.tree import tree_map
 
 
@@ -71,15 +85,18 @@ class SplitGanEngine:
     ``client_params`` / ``server_params`` use the trainer's layout
     (``state["G"]["client"]`` / ``["server"]``): per-group dicts of
     client-stacked layer trees, and the server's union-span layers.
+    ``mesh`` (a ``DeviceMesh``) shards a cohort's bucket rows over its
+    data axes where they divide; ``policy`` is installed for the model's
+    activation specs while a sharded cohort runs.
     """
 
     def __init__(self, groups: Sequence[ProfileGroup],
                  client_params: Dict[str, Dict[str, Any]],
                  server_params: Dict[str, Any], net: str = "G",
-                 mesh=None, policy=None):
-        if mesh is not None or policy is not None:
-            raise NotImplementedError("sharded serving (mesh=, policy=) is "
-                                      "not ported (ROADMAP M10, mesh code)")
+                 mesh=None, policy: Optional[ShardingPolicy] = None):
+        mesh_mod.check_mesh(mesh)
+        self.mesh = mesh
+        self.policy = policy or ShardingPolicy()
         self.groups = list(groups)
         self.net = net
         self.client_params = client_params
@@ -123,12 +140,19 @@ class SplitGanEngine:
         buckets = tuple(bucket_size(len(per[g])) for g in active)
         return active, buckets, per
 
+    def shard_axes(self, buckets: Sequence[int]):
+        """The mesh axes a cohort with these buckets shards over, or None
+        (no mesh, or a bucket the data axes do not divide)."""
+        return None if self.mesh is None else cohort_axes(self.mesh, buckets)
+
     def serve(self, requests: Sequence[ServeRequest]) -> np.ndarray:
         """Run the cohort through the U-shaped program; [N, 28, 28, 1]
         images in request order."""
         active, buckets, per = self.plan(requests)
         apply = self._apply(active)
         dev = self.device
+        axes = self.shard_axes(buckets)
+        part, n_part = mesh_mod.shard_of(self.mesh, axes) if axes else (0, 1)
         gathered, inputs = {}, {}
         for g, bkt in zip(active, buckets):
             idxs = per[g]
@@ -143,21 +167,48 @@ class SplitGanEngine:
             # bucket-padding rows replay row 0 with zero inputs: eval-mode
             # BatchNorm is per element, so they cannot touch valid rows;
             # they are dropped below. Each request is one copy (K) of its
-            # client's layers, with a batch of one.
-            rows_t = torch.as_tensor(rows, device=dev)
+            # client's layers, with a batch of one. A sharded cohort runs
+            # this rank's slice of the bucket.
+            lo, hi = part * bkt // n_part, (part + 1) * bkt // n_part
+            rows_t = torch.as_tensor(rows[lo:hi], device=dev)
             gathered[g] = tree_map(lambda t: t.index_select(0, rows_t),
                                    self.client_params[g])
-            inputs[g] = (torch.as_tensor(z, device=dev)[:, None, :],
-                         torch.as_tensor(y, device=dev)[:, None])
+            inputs[g] = (torch.as_tensor(z[lo:hi], device=dev)[:, None, :],
+                         torch.as_tensor(y[lo:hi], device=dev)[:, None])
         with torch.no_grad():
-            out, _, _, _ = apply(gathered, self.server_params, inputs, False)
-        out = {g: out[g][:, 0].cpu().numpy() for g in active}
+            if axes is None:
+                out, _, _, _ = apply(gathered, self.server_params, inputs,
+                                     False)
+                out = {g: out[g][:, 0] for g in active}
+            else:
+                with activation_sharding(self.mesh, self.policy):
+                    out, _, _, _ = apply(gathered, self.server_params,
+                                         inputs, False)
+                out = self._gather(out, active, buckets, part, n_part, axes)
+        out = {g: out[g].cpu().numpy() for g in active}
         first = out[active[0]]
         imgs = np.zeros((len(requests),) + first.shape[1:], first.dtype)
         for g in active:
             for j, i in enumerate(per[g]):
                 imgs[i] = out[g][j]
         return imgs
+
+    def _gather(self, out, active, buckets, part: int, n_part: int, axes
+                ) -> Dict[str, torch.Tensor]:
+        """Every rank's slices of every group's output into the whole
+        ``[bucket, ...]`` outputs on every rank: one zero-filled buffer
+        holding all groups' buckets, this rank's rows written in, summed
+        over the data axes."""
+        first = out[active[0]][:, 0]
+        full = torch.zeros((sum(buckets),) + tuple(first.shape[1:]),
+                           dtype=first.dtype, device=first.device)
+        offs = np.cumsum((0,) + tuple(buckets))
+        for g, bkt, o in zip(active, buckets, offs):
+            lo = part * bkt // n_part
+            full[o + lo:o + lo + bkt // n_part] = out[g][:, 0]
+        mesh_mod.all_reduce_sum(full, self.mesh, axes)
+        return {g: full[o:o + bkt] for g, bkt, o in zip(active, buckets,
+                                                        offs)}
 
     def predict_latency(self, requests: Sequence[ServeRequest],
                         server: DeviceProfile = PAPER_SERVER,

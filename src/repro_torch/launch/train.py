@@ -38,7 +38,19 @@ checkpoint format and layouts:
 N federation rounds and regroups the population when it finds strictly
 better cuts.
 
-``--fed-devices`` (the mesh code, ROADMAP M10d) raises.
+``--fed-devices N`` shards every federation round's client rows over N
+ranks (``core.federation``, ``mesh=``), as the reference's flag shards
+them over N devices; the training step runs on every rank, each holding
+the whole state. The default is every visible GPU on ``cuda`` and 1 on
+the CPU. N > 1 spawns N ranks (``launch.mesh.run_ranks``: NCCL, one GPU
+each; gloo on the CPU) and returns rank 0's summary, or joins the group
+that ``torchrun --nproc-per-node N`` made (``WORLD_SIZE`` = N). N above
+the visible GPUs on ``cuda`` raises. Only rank 0 prints and writes the
+checkpoint:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch huscf-gan \
+      --device cpu --fed-devices 2 --clients 4 --base-size 24 --batch 4 \
+      --epochs 3 --federate-every 1
 
 ``train_lm`` takes Adam with a warm-up cosine schedule (10 warm-up
 steps, ``max(steps, 20)`` in all) and global-norm clipping at 1.0 on
@@ -52,22 +64,81 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
 import torch
 
 
+def fed_ranks(args) -> int:
+    """The ranks ``--fed-devices`` asks for: by default every visible GPU
+    on ``cuda`` (at least 1) and 1 on the CPU; more than one rank per
+    visible GPU on ``cuda`` is refused."""
+    on_cuda = torch.device(args.device).type == "cuda"
+    visible = torch.cuda.device_count() if on_cuda else 0
+    n = args.fed_devices
+    if n is None:
+        n = max(visible, 1) if on_cuda else 1
+    if n < 1:
+        raise ValueError(f"--fed-devices {n}: at least one rank")
+    if on_cuda and n > 1 and n > visible:
+        raise ValueError(f"--fed-devices {n} asks for more ranks than the "
+                         f"{visible} visible GPU(s), one rank per GPU")
+    return n
+
+
 def train_huscf_gan(args):
+    """Train; returns the trainer, or, where the launcher spawned the
+    ranks, rank 0's summary (``rank_summary``)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+
+    n = fed_ranks(args)
+    dev_type = torch.device(args.device).type
+    if n > 1 and mesh_mod.world_size() != n:
+        if not dist.is_initialized() and \
+                int(os.environ.get("WORLD_SIZE", "1")) == n:
+            # a rank of the group torchrun started
+            rank = int(os.environ["RANK"])
+            backend = mesh_mod.init_rank(rank, n, "env://", dev_type)
+            if rank == 0:
+                mesh_mod.log(f"joined torchrun's {n} ranks: {backend}")
+        else:
+            return mesh_mod.run_ranks(n, _huscf_rank, args,
+                                      device_type=dev_type)[0]
+    return _train_huscf(args, n)
+
+
+def _huscf_rank(args) -> dict:
+    return rank_summary(_train_huscf(args, fed_ranks(args)))
+
+
+def rank_summary(tr) -> dict:
+    """What a spawned rank hands back: losses, rounds and the mesh."""
+    return {"history": tr.history,
+            "rounds": [d["mode"] for d in tr.fed_log],
+            "fed_ranks": 1 if tr.fed_mesh is None else tr.fed_mesh.size(),
+            "groups": len(tr.groups), "ga_latency": tr.ga_latency}
+
+
+def _train_huscf(args, n_ranks: int):
+    import torch.distributed as dist
     from repro_torch.bridge import state_to_numpy
     from repro_torch.checkpoint import save_checkpoint
     from repro_torch.core.huscf import HuSCFConfig, HuSCFTrainer
     from repro_torch.core.latency import PAPER_DEVICES
     from repro_torch.data.partition import build_scenario
+    from repro_torch.launch import mesh as mesh_mod
 
-    if args.fed_devices not in (None, 1):
-        raise NotImplementedError("--fed-devices is not ported yet (ROADMAP "
-                                  "M10, mesh code)")
+    device, fed_mesh, lead = args.device, None, True
+    if n_ranks > 1:
+        # one mesh over the ranks; each rank trains on its own GPU (or
+        # the CPU) and every federation round shards over the mesh
+        dev_type = torch.device(args.device).type
+        fed_mesh = mesh_mod.make_federation_mesh(n_ranks, dev_type)
+        device = mesh_mod.rank_device(dev_type)
+        lead = dist.get_rank() == 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     clients = build_scenario(args.scenario, num_clients=args.clients,
@@ -83,25 +154,26 @@ def train_huscf_gan(args):
                                          agg_chunk=args.agg_chunk,
                                          reoptimize_every=(
                                              args.reoptimize_every)),
-                      device=args.device)
+                      device=device, fed_mesh=fed_mesh)
     agg = (f"chunked({args.agg_chunk})" if args.agg_chunk else "dense")
     part = (f"cohort {args.cohort}/{args.clients}" if args.cohort
             else "full participation")
     reopt = (f", re-cut every {args.reoptimize_every} rounds"
              if args.reoptimize_every else "")
-    print(f"[train] GA latency model: {tr.ga_latency:.2f}s/iter, "
-          f"{len(tr.groups)} profile groups, mesh=1dev, "
-          f"{'per-step' if args.per_step else 'fused'} epochs, "
-          f"{agg} aggregation, {part}{reopt}")
+    say = print if lead else (lambda *a, **k: None)
+    say(f"[train] GA latency model: {tr.ga_latency:.2f}s/iter, "
+        f"{len(tr.groups)} profile groups, mesh={n_ranks}dev, "
+        f"{'per-step' if args.per_step else 'fused'} epochs, "
+        f"{agg} aggregation, {part}{reopt}")
     for ep in range(args.epochs):
         t0 = time.time()
         m = tr.train_epoch()
-        print(f"[train] epoch {ep + 1}: loss_d={m['loss_d']:.3f} "
-              f"loss_g={m['loss_g']:.3f} ({time.time() - t0:.1f}s)",
-              flush=True)
-    if args.ckpt:
+        say(f"[train] epoch {ep + 1}: loss_d={m['loss_d']:.3f} "
+            f"loss_g={m['loss_g']:.3f} ({time.time() - t0:.1f}s)",
+            flush=True)
+    if args.ckpt and lead:
         save_checkpoint(args.ckpt, state_to_numpy(tr.state), step=tr.epoch)
-        print(f"[train] checkpoint -> {args.ckpt}")
+        say(f"[train] checkpoint -> {args.ckpt}")
     return tr
 
 
@@ -189,7 +261,10 @@ def main(argv=None, params=None):
                     default=True,
                     help="hand-written CUDA kernels for aggregation and "
                          "k-means assignment (default on)")
-    ap.add_argument("--fed-devices", type=int, default=None)
+    ap.add_argument("--fed-devices", type=int, default=None,
+                    help="ranks to shard every federation round's client "
+                         "rows over (default: every visible GPU on cuda, "
+                         "1 on the CPU)")
     ap.add_argument("--per-step", action="store_true",
                     help="per-step epochs (the oracle loop) instead of "
                          "fused ones")

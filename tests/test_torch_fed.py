@@ -32,6 +32,7 @@ from repro_torch.core import federation as tfed  # noqa: E402
 from repro_torch.core import kld as tkld  # noqa: E402
 from repro_torch.core import latency as tlat  # noqa: E402
 from repro_torch.core import splitting as tspl  # noqa: E402
+from repro_torch.tree import tree_items  # noqa: E402
 
 from test_torch_split import _population, random_split_state  # noqa: E402
 
@@ -200,13 +201,23 @@ def test_weight_segments_match_reference(fed_setup):
 
 
 def test_unported_round_options_raise(fed_setup):
-    """Chunks and cohorts are ported (tests/test_torch_population.py);
-    mesh sharding (M10) still raises on every entry point."""
+    """Chunks and cohorts are ported (tests/test_torch_population.py), and
+    so is mesh sharding: on a 1-rank mesh every entry point takes the
+    unsharded round, bit for bit (sharded meshes:
+    tests/test_torch_mesh.py)."""
+    from repro_torch.launch.mesh import make_federation_mesh
     _, gt, wrapped = fed_setup
     params = state_from_numpy(wrapped, "cpu")
-    with pytest.raises(NotImplementedError, match="M10"):
-        tfed.fedavg_uniform(gt, params, np.ones(6), mesh=object())
-    with pytest.raises(NotImplementedError, match="M10"):
-        tfed.federate_client_params_device(
-            gt, params, torch.ones(6), torch.zeros(6, dtype=torch.int64), 1,
-            mesh=object())
+    mesh = make_federation_mesh(1, "cpu")
+    weights, labels = torch.rand(6), torch.tensor([0, 1, 0, 2, 1, 2])
+    for kw in ({}, {"chunk_size": 2}):
+        got = tfed.fedavg_uniform(gt, params, np.arange(1, 7), mesh=mesh,
+                                  **kw)
+        want = tfed.fedavg_uniform(gt, params, np.arange(1, 7), **kw)
+        got_d = tfed.federate_client_params_device(
+            gt, params, weights, labels, 3, mesh=mesh, **kw)
+        want_d = tfed.federate_client_params_device(
+            gt, params, weights, labels, 3, **kw)
+        for a, b in ((got, want), (got_d, want_d)):
+            for (pa, x), (pb, y) in zip(tree_items(a), tree_items(b)):
+                assert pa == pb and torch.equal(x, y)

@@ -49,6 +49,9 @@ def test_port_and_example_twins_import_no_jax_and_no_reference():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == [], res["bad"]
     assert "repro_torch.core.huscf" in res["modules"]
+    for name in ("repro_torch.sharding", "repro_torch.sharding.policy",
+                 "repro_torch.launch.mesh"):
+        assert name in res["modules"], name
     assert len(res["modules"]) > 40
     assert res["examples"] == ["torch_multi_domain_comparison.py",
                                "torch_quickstart.py", "torch_serve_lm.py",

@@ -327,8 +327,10 @@ def test_buffer_bytes_equal_reference(population):
 
 
 def test_mesh_still_raises(population):
+    """Mesh sharding is ported (tests/test_torch_mesh.py); a mesh that is
+    not a ``DeviceMesh`` is a caller's error."""
     _, gt, params, labels, weights, _ = population
-    with pytest.raises(NotImplementedError, match="M10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tfed.federate_client_params(gt, _torch_params(params), weights,
                                     labels, n_layers={"G": 2}, mesh=object())
 
@@ -547,7 +549,13 @@ def test_launcher_population_flags_on_cpu(tmp_path, capsys):
     assert step == 3
 
 
-@pytest.mark.parametrize("flag,item", [("--fed-devices", "M10")])
+@pytest.mark.parametrize("flag,item", [
+    ("--fed-devices", r"--fed-devices {n} .* the {have} visible GPU")])
 def test_launcher_unported_flags_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain.main(["--arch", "huscf-gan", "--device", "cpu", flag, "2"])
+    """``--fed-devices`` is ported (tests/test_torch_mesh.py); on ``cuda``
+    it takes one rank per visible GPU, so more ranks than GPUs (2 against
+    none here) raise, naming both counts."""
+    have = torch.cuda.device_count()
+    n = max(2, have + 1)
+    with pytest.raises(ValueError, match=item.format(n=n, have=have)):
+        ttrain.main(["--arch", "huscf-gan", "--device", "cuda", flag, str(n)])

@@ -251,9 +251,24 @@ def test_gan_subset_cohort_drops_absent_cuts():
 
 
 def test_gan_engine_mesh_is_not_ported():
+    """Sharded serving is ported (tests/test_torch_mesh.py): on a 1-rank
+    mesh no bucket shards, and the engine serves what ``mesh=None``
+    serves, bit for bit."""
+    from repro_torch.launch.mesh import make_federation_mesh
     groups = tss.build_mix("balanced")
-    with pytest.raises(NotImplementedError, match="M10"):
-        tss.SplitGanEngine(groups, {}, {}, mesh=object())
+    client, server = tss.init_gan_serving_state(
+        torch.Generator().manual_seed(0), groups, device="cpu")
+    rng = np.random.default_rng(0)
+    reqs = [tss.ServeRequest(g.client_ids[j % g.size],
+                             rng.normal(size=tgan.Z_DIM).astype(np.float32),
+                             int(rng.integers(0, 10)))
+            for g, n in zip(groups, (3, 4, 1, 2)) for j in range(n)]
+    eng = tss.SplitGanEngine(groups, client, server,
+                             mesh=make_federation_mesh(1, "cpu"))
+    _, buckets, _ = eng.plan(reqs)
+    assert eng.shard_axes(buckets) is None
+    want = tss.SplitGanEngine(groups, client, server).serve(reqs)
+    assert np.array_equal(eng.serve(reqs), want)
 
 
 # ---------------------------------------------------------------------------
