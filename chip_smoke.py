@@ -166,10 +166,23 @@ Phases (any failure exits non-zero and prints no result):
      every rank and K2 on every rank (counts set to 0 just before each
      round, read just after), the replicas equal after it; K1 on each
      rank's row block against its plain version and timed (ranks in
-     turn). A 56-client population (8 per profile, base size 24,
-     agg_chunk 4) on 2 and 4 ranks: one step and a chunked clustered
-     round sharded per group, within MESH_CHUNK_TOL of the unsharded
-     stream, K1 once per chunk tile of each rank's block. The launcher's
+     turn). Its groups (sizes 2, 1, 1, ...) do not divide, so its step
+     is replicated (``step_sharded`` False). A 56-client
+     population (8 per profile of the paper's 7 devices: 7 groups of 8,
+     which 2 and 4 ranks divide; Table-3 widths, base size 24, batch 16)
+     on meshes of 1, 2 and 4 ranks runs the client-sharded step: 3 steps
+     on the loop from the seed's state and the same draws (the step
+     wall, and the collectives' ms and calls per step), each rank's
+     state and peak bytes (1 rank: the replicated mode's, where every
+     rank holds the whole state), the largest difference of the losses,
+     EMA and parameters from the 1-rank mesh (first losses within
+     MESH_STEP_RTOL, parameters within 2 lr ``adam_bound``), the
+     server's replicas equal bit for bit; ``fused_epoch=True`` on the
+     card raises; then a dense clustered round (one K1 per net at [S,
+     56/n] @ [56/n, D]) and a chunked one (agg_chunk 4, one K1 per chunk
+     tile of each rank's block) on the rank's own rows, each within
+     MESH_TOL / MESH_CHUNK_TOL of the unsharded round from the same
+     state, with no replica sync. The launcher's
      edge-heavy GAN cohort served on 2 and 4 ranks against ``mesh=None``
      (MESH_SERVE_TOL). Each round's wall time and its collectives' ms
      are logged; the card's memory is held to
@@ -224,7 +237,8 @@ Phases (any failure exits non-zero and prints no result):
      the phase 4d numbers), the ``mesh`` line (phase 4f), one with the
      kernels (K1 and K2 with their population shapes, launches and the
      re-cut, quality, legacy and mesh runs' launches, K1 at the mesh's
-     row blocks), then the result line.
+     row blocks and at the sharded population's local rows), then the
+     result line.
 
 Float32 products and convolutions run in full float32 (TF32 off).
 """
@@ -3070,6 +3084,13 @@ MESH_POP_CHUNK = 4
 # the dense round, 1e-5 for the chunk stream's re-associated sums
 MESH_TOL = 1e-6
 MESH_CHUNK_TOL = 1e-5
+MESH_POP_STEPS = 3
+# the sharded step against the 1-rank mesh from one state and the same
+# draws: the first step's losses differ by the order of the reduced sums
+# (the server's BatchNorm statistics, the losses) and cuDNN's
+# nondeterministic weight gradients, well below 1e-4 relative; later
+# steps follow Adam's drift (parameters within 2 lr adam_bound)
+MESH_STEP_RTOL = 1e-4
 # sharded serving runs a convolution over a quarter or half of a bucket's
 # rows, for which cuDNN may pick another algorithm than for all of them:
 # images in the tanh range agree to a few float32 ulps
@@ -3093,13 +3114,16 @@ def _sync(device) -> None:
 class _CollectiveClock:
     """Host milliseconds spent in the mesh's collectives, each call
     synchronised before and after: wraps ``all_reduce_sum`` (the rounds'
-    partial sums and the served outputs) and ``broadcast_flat`` (the
-    replica sync) on the module the federation, the trainer and the
+    partial sums, the served outputs, and in a sharded step the server's
+    BatchNorm statistics, gradients and losses), ``all_gather_rows`` (a
+    sharded trainer's EMA and state made whole) and ``broadcast_flat``
+    (the replica sync) on the module the federation, the trainer and the
     engine call through."""
 
     def __init__(self, mesh_mod, device):
-        self.ms = {"all_reduce": 0.0, "sync_replicas": 0.0}
-        self.calls = {"all_reduce": 0, "sync_replicas": 0}
+        self.ms = {"all_reduce": 0.0, "all_gather": 0.0,
+                   "sync_replicas": 0.0}
+        self.calls = {"all_reduce": 0, "all_gather": 0, "sync_replicas": 0}
 
         def timed(fn, key):
             def run(*a, **k):
@@ -3112,6 +3136,8 @@ class _CollectiveClock:
                 return out
             return run
         mesh_mod.all_reduce_sum = timed(mesh_mod.all_reduce_sum, "all_reduce")
+        mesh_mod.all_gather_rows = timed(mesh_mod.all_gather_rows,
+                                         "all_gather")
         mesh_mod.broadcast_flat = timed(mesh_mod.broadcast_flat,
                                         "sync_replicas")
 
@@ -3268,21 +3294,127 @@ def _mesh_slice(mesh, cuts, clock, device, sz) -> dict:
                            else 0.0)
     out["client_axes"] = sorted({str(p._client_axes)
                                  for p in tr._fed_plans.values()})
+    out["step"] = "sharded" if tr.step_sharded else "replicated"
     if mesh.size() > 1:
         out["shard"] = _shard_check(tr, mesh, tr.fed_log[-1])
     return out
 
 
-def _mesh_chunked(mesh, cuts, clock, device, sz) -> dict:
-    """56 clients, 8 per profile, base size 24, agg_chunk 4: one step and
-    a chunked clustered round sharded per group, against the unsharded
-    stream from the same input; K1 launches against one per chunk tile of
-    this rank's block of every group."""
+def _whole_params(tr) -> dict:
+    """(path, tensor) of both nets' whole parameters: a sharded trainer's
+    client rows gathered (one collective per dtype)."""
+    from repro_torch.core.huscf import _carry_items
+    from repro_torch.launch import mesh as M
+    return dict(M.gather_state(
+        [(p, x) for p, x in _carry_items(tr.state) if p[0] in ("G", "D")],
+        tr.fed_mesh, tr._shard_axes, tr._is_rows))
+
+
+def server_spread(tr, mesh) -> float:
+    """Largest |this rank's - the mesh's first rank's| over the server's
+    parameters and Adam moments, the largest over the mesh's ranks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.huscf import _carry_items
+    from repro_torch.launch import mesh as M
+    flat = torch.cat([x.reshape(-1).double()
+                      for p, x in _carry_items(tr.state)
+                      if "server" in p[1:3]])
+    first = flat.clone()
+    M.broadcast_from_first([first], mesh)
+    worst = (flat - first).abs().max()
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX, group=mesh.get_group("data"))
+    return float(worst)
+
+
+def _state_bytes(tr) -> dict:
+    """Bytes this rank holds of the trainer's state (parameters and
+    moments), of its client rows alone, and of the EMA and dataset."""
+    from repro_torch.core.huscf import _carry_items
+    out = {"state": 0, "client_rows": 0}
+    for p, x in _carry_items(tr.state):
+        if hasattr(x, "numel"):
+            n = x.numel() * x.element_size()
+            out["state"] += n
+            out["client_rows"] += n if tr._is_rows(p) else 0
+    out["ema"] = tr._mid_ema.numel() * tr._mid_ema.element_size()
+    out["dataset"] = sum(x.numel() * x.element_size()
+                         for x in tr._dataset.images.values())
+    return out
+
+
+def _local_round(tr, clock, chunk) -> dict:
+    """One clustered round of a trainer, dense or chunked: wall time,
+    collectives, K1/K2 launches (set to 0 just before, read just after),
+    K1's shapes, and the largest difference of this rank's client rows
+    from the unsharded round of the same weights and labels on the
+    gathered state before it."""
+    from repro_torch.core.clustering import k_selection_bound
+    from repro_torch.core.federation import (N_LAYERS,
+                                             federate_client_params_device)
+    from repro_torch.kernels import kmeans_assign as km
+    from repro_torch.kernels import weighted_agg as wa
+    from repro_torch.tree import tree_from_items, tree_items
+    tr.cfg = dataclasses.replace(tr.cfg, agg_chunk=chunk)
+    before = _whole_params(tr)
+    clock.take()
+    wa.launches = km.launches = 0
+    _sync(tr.device)
+    t0 = time.perf_counter()
+    diag = tr.federate()
+    _sync(tr.device)
+    wall = time.perf_counter() - t0
+    k1, k2 = wa.launches, km.launches
+    coll = clock.take()
+    bound_k = k_selection_bound(len(tr.clients), tr.cfg.num_clusters)
+    diff = 0.0
+    for net in ("G", "D"):
+        whole = {g.name: {net: tree_from_items(
+            (path[3:], x) for path, x in before.items()
+            if path[:3] == (net, "client", g.name))} for g in tr.groups}
+        want = federate_client_params_device(
+            tr.groups, whole, diag["weights"], diag["labels"], bound_k,
+            n_layers={net: N_LAYERS[net]}, use_kernel=True, chunk_size=chunk)
+        for g in tr.groups:
+            rows = slice(*tr._blocks[g.name])
+            for (_, a), (_, b) in zip(
+                    tree_items(tr.state[net]["client"][g.name]),
+                    tree_items(want[g.name][net])):
+                diff = max(diff, float((a - b[rows]).abs().max()))
+    plans = [p for p in tr._fed_plans.values() if p.chunk_size == chunk]
+    shapes = {p.net: {"S": p.num_segments(bound_k),
+                      "K": (p._local.n_rows if p.local_rows else p.n_rows),
+                      "D": p.n_cols} for p in plans}
+    per = {g.name: g.size for g in tr._step_groups}
+    expected = 2 if chunk is None else 2 * sum(
+        -(-k // chunk) for k in per.values())
+    return {"mode": diag["mode"], "chunk": chunk, "wall_s": wall,
+            "collective": coll, "k1_launches": k1, "k1_expected": expected,
+            "k2_launches": k2, "k1_shapes": shapes,
+            "local_rows": [p.local_rows for p in plans],
+            "dense_buffer_bytes": {p.net: p.dense_buffer_bytes()
+                                   for p in plans if chunk is None},
+            "max_abs_diff": diff, "k": int(diag.get("k", 1))}
+
+
+def _mesh_population(mesh, cuts, clock, device, sz, first=None) -> dict:
+    """56 clients, 8 per profile of the paper's 7 devices (7 groups of
+    8), base size 24, at Table-3 widths: the client-sharded step on
+    ``mesh`` for MESH_POP_STEPS steps on the loop from the seed's state
+    and draws, then a dense and a chunked (agg_chunk) clustered round on
+    the rank's own rows. ``first`` holds the 1-rank mesh's losses, EMA
+    and parameters, which the first rank of a larger mesh compares
+    with."""
+    import numpy as np
+    import torch
     from repro_torch.core.huscf import HuSCFConfig, HuSCFTrainer
     from repro_torch.core.latency import Cut, PAPER_DEVICES
     from repro_torch.data.partition import build_scenario
     from repro_torch.launch import mesh as M
-    n, chunk = sz["pop_clients"], sz["chunk"]
+    n = sz["pop_clients"]
+    on_cuda = torch.device(device).type == "cuda"
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
     clients = build_scenario("2dom_noniid", num_clients=n,
                              base_size=sz["pop_base_size"], seed=0)
     devices = [PAPER_DEVICES[i % 7] for i in range(n)]
@@ -3290,18 +3422,69 @@ def _mesh_chunked(mesh, cuts, clock, device, sz) -> dict:
                       cuts=[Cut(*cuts[i % 7]) for i in range(n)],
                       config=HuSCFConfig(batch=sz["batch"], seed=0,
                                          warmup_fed_rounds=0,
-                                         agg_chunk=chunk,
                                          fused_epoch=False),
                       device=M.rank_device(device), fed_mesh=mesh)
-    tr.train_steps(1)
-    rnd = _round_vs_single(tr, mesh, clock, chunk=chunk)
-    per = mesh.size()
-    rnd["k1_expected"] = 2 * sum(-(-(g.size // per) // chunk)
-                                 for g in tr.groups)
-    rnd["groups"] = [g.size for g in tr.groups]
-    rnd["chunk_axes"] = sorted({str(p._chunk_axes)
-                                for p in tr._fed_plans.values()})
-    return rnd
+    out = {"step": "sharded" if tr.step_sharded else "replicated",
+           "groups": [g.size for g in tr.groups],
+           "rows_per_group": [g.size for g in tr._step_groups],
+           "bytes": _state_bytes(tr)}
+    clock.take()
+    M.calls.clear()
+    walls, losses = [], []
+    for _ in range(MESH_POP_STEPS):
+        _sync(tr.device)
+        t0 = time.perf_counter()
+        losses.append(tr.train_steps(1))
+        _sync(tr.device)
+        walls.append(time.perf_counter() - t0)
+    coll = clock.take()
+    out.update({"step_s": walls, "losses": losses,
+                "collective_per_step": {
+                    "ms": {k: v / MESH_POP_STEPS
+                           for k, v in coll["ms"].items()},
+                    "calls": {k: v / MESH_POP_STEPS
+                              for k, v in coll["calls"].items()}},
+                "backend_calls_per_step": {
+                    k: v / MESH_POP_STEPS for k, v in M.calls.items()}})
+    ema = tr.middle_activations()
+    params = _whole_params(tr)
+    out["finite"] = bool(np.isfinite(ema).all()) and all(
+        math.isfinite(v) for m in losses for v in m.values()) and all(
+        bool(torch.isfinite(x).all()) for x in params.values())
+    out["server_spread"] = (server_spread(tr, mesh) if mesh.size() > 1
+                            else 0.0)
+    if mesh.size() == 1:
+        first.update(losses=losses, ema=ema, params=params)
+    elif mesh.get_local_rank("data") == 0:
+        out["vs_1rank"] = {
+            "first_loss_rel": max(abs(losses[0][k] - first["losses"][0][k])
+                                  / abs(first["losses"][0][k])
+                                  for k in losses[0]),
+            "last_loss_rel": max(abs(losses[-1][k] - first["losses"][-1][k])
+                                 / abs(first["losses"][-1][k])
+                                 for k in losses[-1]),
+            "ema": float(np.abs(ema - first["ema"]).max()),
+            "params": max(float((params[p] - first["params"][p]).abs().max())
+                          for p in params)}
+    del params
+    if tr.step_sharded:
+        # the card's fused epoch cannot capture the sharded step's
+        # collectives; on the CPU a stand-in pool exercises the guard
+        pool = tr._graph_pool
+        tr._graph_pool = pool if pool is not None else object()
+        tr.cfg = dataclasses.replace(tr.cfg, fused_epoch=True)
+        try:
+            tr.train_steps(1)
+            out["fused_guard"] = None
+        except ValueError as e:
+            out["fused_guard"] = str(e)
+        tr._graph_pool = pool
+        tr.cfg = dataclasses.replace(tr.cfg, fused_epoch=False)
+    out["rounds"] = [_local_round(tr, clock, None),
+                     _local_round(tr, clock, sz["chunk"])]
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated() if on_cuda
+                         else 0)
+    return out
 
 
 def _mesh_serve(mesh, clock, device, sz) -> dict:
@@ -3362,8 +3545,10 @@ def _count_plain_calls() -> None:
 
 def _mesh_rank(cuts, device: str, sz: dict) -> dict:
     """One rank of the mesh phase: the slice on meshes of 1, 2 and 4
-    ranks, the chunked population on 2 and 4, serving on 2 and 4 (every
-    rank builds every mesh; ranks outside one wait)."""
+    ranks, serving on 2 and 4, then the sharded population on 1, 2 and 4
+    (every rank builds every mesh; ranks outside one wait). The peak
+    bytes are the slice's and serving's; the population reads its own."""
+    import functools
     import gc
     import torch
     import torch.distributed as dist
@@ -3371,13 +3556,20 @@ def _mesh_rank(cuts, device: str, sz: dict) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     clock = _CollectiveClock(M, device)
-    out = {"rank": dist.get_rank(), "slice": {}, "chunked": {}, "serve": {}}
+    out = {"rank": dist.get_rank(), "slice": {}, "serve": {},
+           "population": {}}
     on_cuda = torch.device(device).type == "cuda"
     if not on_cuda:
         _count_plain_calls()
-    for what, sizes, run in (("slice", MESH_SLICE_RANKS, _mesh_slice),
-                             ("chunked", MESH_CHUNK_RANKS, _mesh_chunked),
-                             ("serve", MESH_CHUNK_RANKS, _mesh_serve)):
+    first: dict = {}
+    for what, sizes, run in (
+            ("slice", MESH_SLICE_RANKS, _mesh_slice),
+            ("serve", MESH_CHUNK_RANKS, _mesh_serve),
+            ("population", MESH_SLICE_RANKS,
+             functools.partial(_mesh_population, first=first))):
+        if what == "population":
+            out["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                 if on_cuda else 0)
         for n in sizes:
             mesh = M.make_federation_mesh(n, device)
             t0 = time.perf_counter()
@@ -3390,7 +3582,7 @@ def _mesh_rank(cuts, device: str, sz: dict) -> dict:
             if on_cuda:
                 torch.cuda.empty_cache()
             dist.barrier()
-    out["peak_bytes"] = torch.cuda.max_memory_allocated() if on_cuda else 0
+    first.clear()
     return out
 
 
@@ -3440,16 +3632,52 @@ def run_mesh(cuts, device: str = "cuda", sz: dict = None) -> dict:
                         or not sh["max_abs_err"] <= K1_RTOL * sh["scale"]:
                     raise AssertionError(f"{n}-rank slice, rank {rank}: {p}")
         slice_[str(n)] = per
-    chunked = {}
-    for n in MESH_CHUNK_RANKS:
-        per = [r["chunked"][str(n)] for r in ranks if str(n) in r["chunked"]]
-        for rank, rd in enumerate(per):
-            if rd["mode"] != "clustered" or rd["chunk_axes"] != ["data"] or \
-                    rd["k1_launches"] != rd["k1_expected"] or \
-                    not rd["max_abs_diff"] <= MESH_CHUNK_TOL:
-                raise AssertionError(f"{n}-rank chunked round, rank {rank}: "
-                                     f"{rd}")
-        chunked[str(n)] = per
+    population = {}
+    from repro_torch.core.huscf import HuSCFConfig
+    step_bound = 2 * HuSCFConfig().lr * adam_bound(MESH_POP_STEPS,
+                                                   HuSCFConfig().adam_b1)
+    for n in MESH_SLICE_RANKS:
+        per = [r["population"][str(n)] for r in ranks
+               if str(n) in r["population"]]
+        if len(per) != n:
+            raise AssertionError(f"{len(per)} ranks reported the {n}-rank "
+                                 "population")
+        for rank, p in enumerate(per):
+            bad = []
+            if p["step"] != ("sharded" if n > 1 else "replicated"):
+                bad.append(f"step {p['step']}")
+            if p["rows_per_group"] != [g // n for g in p["groups"]]:
+                bad.append(f"rows {p['rows_per_group']}")
+            if not p["finite"] or p["server_spread"] != 0.0:
+                bad.append(f"finite {p['finite']}, server spread "
+                           f"{p['server_spread']}")
+            if n > 1 and not (p.get("fused_guard") and
+                              "fused_epoch=False" in p["fused_guard"]):
+                bad.append(f"fused-epoch guard {p.get('fused_guard')}")
+            vs = p.get("vs_1rank")
+            if vs is not None and not (
+                    vs["first_loss_rel"] <= MESH_STEP_RTOL
+                    and vs["params"] <= step_bound
+                    and math.isfinite(vs["ema"])):
+                bad.append(f"against 1 rank {vs} (params bound "
+                           f"{step_bound})")
+            for rd in p["rounds"]:
+                tol = MESH_TOL if rd["chunk"] is None else MESH_CHUNK_TOL
+                if rd["mode"] != "clustered" or \
+                        rd["k1_launches"] != rd["k1_expected"] or \
+                        rd["k2_launches"] <= 0 or \
+                        rd["collective"]["calls"]["sync_replicas"] != 0 or \
+                        not rd["max_abs_diff"] <= tol or \
+                        any(v is not (n > 1) for v in rd["local_rows"]):
+                    bad.append(f"round {rd}")
+            if bad:
+                raise AssertionError(f"{n}-rank population, rank {rank}: "
+                                     + "; ".join(bad))
+        population[str(n)] = per
+    for n in MESH_SLICE_RANKS:
+        if any(p["step"] != "replicated" for p in slice_[str(n)]):
+            raise AssertionError(f"{n}-rank slice: its groups do not divide, "
+                                 "the step must replicate")
     serve = {}
     for n in MESH_CHUNK_RANKS:
         per = [r["serve"][str(n)] for r in ranks if str(n) in r["serve"]]
@@ -3459,6 +3687,15 @@ def run_mesh(cuts, device: str = "cuda", sz: dict = None) -> dict:
                 raise AssertionError(f"{n}-rank serving, rank {rank}: {s}")
         serve[str(n)] = per
     for n in MESH_SLICE_RANKS:
+        per = population[str(n)]
+        log(f"mesh {n} rank(s) population ({per[0]['step']} step): step "
+            f"{[round(x, 4) for x in per[0]['step_s']]} s, collectives per "
+            f"step {per[0]['collective_per_step']['calls']} calls "
+            f"{ {k: round(v, 2) for k, v in per[0]['collective_per_step']['ms'].items()} } "
+            f"ms, client rows {[p['bytes']['client_rows'] for p in per]} B, "
+            f"peak {[p['peak_bytes'] for p in per]} B, vs 1 rank "
+            f"{per[0].get('vs_1rank')}, rounds "
+            f"{[(rd['chunk'], round(rd['wall_s'], 4), rd['k1_launches'], rd['max_abs_diff']) for rd in per[0]['rounds']]}")
         for rd_i, mode in enumerate(("fedavg", "clustered")):
             rds = [p["rounds"][rd_i] for p in slice_[str(n)]]
             log(f"mesh {n} rank(s) {mode} round: wall "
@@ -3471,14 +3708,15 @@ def run_mesh(cuts, device: str = "cuda", sz: dict = None) -> dict:
                 "speed-up)")
     return {"world": MESH_WORLD, "backend": backend, "backend_reason": reason,
             "card_hbm_bytes": total, "hbm_constant": M.CARD_HBM_BYTES,
-            "phase_s": phase_s, "slice": slice_, "chunked": chunked,
+            "phase_s": phase_s, "slice": slice_, "population": population,
             "serve": serve,
             "peak_bytes_per_rank": [r["peak_bytes"] for r in ranks],
             "k1_launches": {
                 "slice": {n: [[rd["k1_launches"] for rd in p["rounds"]]
                               for p in slice_[n]] for n in slice_},
-                "chunked": {n: [rd["k1_launches"] for rd in chunked[n]]
-                            for n in chunked}},
+                "population": {n: [[rd["k1_launches"] for rd in p["rounds"]]
+                                   for p in population[n]]
+                               for n in population}},
             "note": "ranks share one card's SMs under gloo: times measure "
                     "the decomposition's overhead, not a speed-up"}
 
@@ -3593,6 +3831,15 @@ def main() -> int:
             time_clustered_agg(gen, sh["S"], sh["K"], sh["D"]),
             launches_per_rank=[rd["k1_launches"] for rd in
                                mesh["slice"][str(n)][0]["rounds"]])
+    # the sharded population's dense round: one K1 per net and rank at
+    # [S, 56/n] @ [56/n, D] on the rank's own rows
+    for n in MESH_SLICE_RANKS:
+        dense = mesh["population"][str(n)][0]["rounds"][0]
+        for net, sh in sorted(dense["k1_shapes"].items()):
+            kernels[0][f"mesh_local_{n}_{net}"] = dict(
+                time_clustered_agg(gen, sh["S"], sh["K"], sh["D"]),
+                launches_per_rank=[p["rounds"][0]["k1_launches"]
+                                   for p in mesh["population"][str(n)]])
     attn_err = check_attention(gen)
     lm_cfg = SplitLMConfig(s_max=lm_serve["prompt"] + lm_serve["gen"] + 16)
     attn_times = time_attention(gen, lm_cfg, lm_serve["batch"],

@@ -60,7 +60,18 @@ recv-select compose with both. When the rows do not divide by the mesh
 (``sharding.policy.client_axes``; every group's rows for the chunk
 stream, ``group_client_axes``) or the mesh has one rank, the plan takes
 the single-device path, bit for bit. Plans are cached per mesh (its
-ranks, shape and axis names), chunk size and cohort size.
+ranks, shape and axis names), chunk size, cohort size and row layout.
+
+Rounds on a rank's own rows (``local_rows=True``, the client-sharded
+training step's state): every group divides by the mesh
+(``policy.group_client_axes``) and each rank's client stacks hold only
+its block of each group's rows (``policy.row_block``), ``[K_g / n,
+...]``. The dense round flattens the rank's stacks into ``theta [K / n,
+D]``, contracts them in one K1 call against the matching columns of the
+whole ``A`` (``[S, K / n] @ [K / n, D]``), all-reduces the ``[S, D]``
+partial and unflattens only into the rank's rows; the chunk stream
+walks the same blocks, reading the local stacks. The weights, labels
+and cohort stay indexed by global client id.
 """
 from __future__ import annotations
 
@@ -76,7 +87,8 @@ from repro_torch.core.splitting import (ProfileGroup, client_owned_layers,
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.gan import DISC_LAYER_DEFS, GEN_LAYER_DEFS
-from repro_torch.sharding.policy import client_axes, group_client_axes
+from repro_torch.sharding.policy import (client_axes, group_client_axes,
+                                         row_block, shard_index)
 from repro_torch.tree import tree_from_items, tree_items, tree_map
 
 _SEGMENT_PAD = 8
@@ -103,6 +115,23 @@ class _SegmentEntry:
     sid0: int                   # slice into the per-copy segment-id vec
     sid1: int
     leaves: Tuple[_LeafSpec, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class _LocalRows:
+    """A rank's own rows of a ``local_rows`` plan: the mesh axes, each
+    group's block, the buffer layout of the blocks, and the global
+    buffer rows and copies they are."""
+    axes: Any
+    blocks: Dict[str, Tuple[int, int]]
+    group_rows: Dict[str, Tuple[int, int]]
+    entries: List["_SegmentEntry"]
+    rows: np.ndarray            # [K / n] rows of the whole buffer
+    copies: np.ndarray          # [n_copies / n] copies of the whole plan
+
+    @property
+    def n_rows(self) -> int:
+        return int(self.rows.shape[0])
 
 
 def _padded_segments(n_seg: int) -> int:
@@ -143,11 +172,14 @@ class FederationPlan:
     from a template of the client params and reused every round.
     ``chunk_size`` enables ``aggregate_chunked``; ``mesh`` shards the
     rounds' client rows over its data axes (the single-device path when
-    they do not divide)."""
+    they do not divide); ``local_rows`` says the client stacks hold this
+    rank's block of every group's rows (a client-sharded trainer's
+    state), which every group's size must divide into."""
 
     def __init__(self, groups: Sequence[ProfileGroup], net: str,
                  n_layers: int, template: Dict[str, Dict[str, Any]],
-                 chunk_size: Optional[int] = None, mesh: Any = None):
+                 chunk_size: Optional[int] = None, mesh: Any = None,
+                 local_rows: bool = False):
         mesh_mod.check_mesh(mesh)
         self.net = net
         self.n_layers = n_layers
@@ -155,20 +187,16 @@ class FederationPlan:
         if chunk_size is not None and int(chunk_size) < 1:
             raise ValueError(f"chunk_size {chunk_size} must be >= 1")
         self.chunk_size = None if chunk_size is None else int(chunk_size)
-        self._group_rows: Dict[str, Tuple[int, int]] = {}
-        self.row_cids: List[int] = []
-        row = 0
-        for g in groups:
-            self._group_rows[g.name] = (row, row + g.size)
-            self.row_cids.extend(g.client_ids)
-            row += g.size
-        self.n_rows = row
+        self.row_cids: List[int] = [cid for g in groups
+                                    for cid in g.client_ids]
         owned = {g.name: client_owned_layers(layer_pair(g.cut, net), n_layers)
                  for g in groups}
         layers = sorted({l for ls in owned.values() for l in ls})
+        self._owned = owned
+        self._groups_order = [g.name for g in groups]
 
         self._col_runs: Dict[int, Tuple[int, int]] = {}
-        layer_specs: Dict[int, Tuple[_LeafSpec, ...]] = {}
+        self._layer_specs: Dict[int, Tuple[_LeafSpec, ...]] = {}
         col = 0
         for l in layers:
             for g in groups:
@@ -178,28 +206,20 @@ class FederationPlan:
                     _LeafSpec(path, tuple(x.shape[1:]),
                               int(np.prod(x.shape[1:], dtype=np.int64)))
                     for path, x in tree_items(template[g.name][str(l)]))
-                if l not in layer_specs:
-                    layer_specs[l] = specs
-                elif layer_specs[l] != specs:
+                if l not in self._layer_specs:
+                    self._layer_specs[l] = specs
+                elif self._layer_specs[l] != specs:
                     raise ValueError(f"layer {l} leaf layout differs across "
                                      f"groups (group {g.name})")
-            width = sum(s.size for s in layer_specs[l])
+            width = sum(s.size for s in self._layer_specs[l])
             self._col_runs[l] = (col, width)
             col += width
         self.n_cols = col
         self.row_stride = row_stride(col)
-
-        self.entries: List[_SegmentEntry] = []
-        sid = 0
-        for g in groups:
-            r0, r1 = self._group_rows[g.name]
-            for l in owned[g.name]:
-                c0, w = self._col_runs[l]
-                self.entries.append(_SegmentEntry(
-                    l, g.name, r0, r1, c0, w, sid, sid + g.size,
-                    layer_specs[l]))
-                sid += g.size
-        self.n_copies = sid
+        self._group_rows, self.entries = self._layout(
+            {g.name: g.size for g in groups})
+        self.n_rows = len(self.row_cids)
+        self.n_copies = sum(e.row1 - e.row0 for e in self.entries)
 
         self._layer_rows: List[Tuple[int, np.ndarray, np.ndarray]] = []
         cids_arr = np.asarray(self.row_cids, np.int64)
@@ -214,10 +234,8 @@ class FederationPlan:
         for e in self.entries:
             self._copy_layer_pos[e.sid0:e.sid1] = layer_pos[e.layer]
             self._copy_cid[e.sid0:e.sid1] = cids_arr[e.row0:e.row1]
-        self._owned = owned
         self._owned_pos = {gname: [layer_pos[l] for l in ls]
                            for gname, ls in owned.items()}
-        self._groups_order = [g.name for g in groups]
         self._index_cache: Dict[torch.device, Tuple] = {}
         # client-row placement: sanitize drops the axes (None: the
         # single-device path) when the rows do not divide by the mesh or
@@ -230,6 +248,58 @@ class FederationPlan:
         self._chunk_axes = (None if mesh is None or self.chunk_size is None
                             or not group_sizes
                             else group_client_axes(mesh, group_sizes))
+        self._local = (self._local_layout(groups, template)
+                       if local_rows and mesh is not None and mesh.size() > 1
+                       else None)
+
+    def _layout(self, sizes: Dict[str, int]
+                ) -> Tuple[Dict[str, Tuple[int, int]], List[_SegmentEntry]]:
+        """The flat buffer's rows for stacks of ``sizes[gname]`` rows per
+        group, in group order, and the (group, layer) tiles on them."""
+        group_rows: Dict[str, Tuple[int, int]] = {}
+        entries: List[_SegmentEntry] = []
+        row = sid = 0
+        for gname in self._groups_order:
+            group_rows[gname] = (row, row + sizes[gname])
+            for l in self._owned[gname]:
+                c0, w = self._col_runs[l]
+                entries.append(_SegmentEntry(
+                    l, gname, row, row + sizes[gname], c0, w, sid,
+                    sid + sizes[gname], self._layer_specs[l]))
+                sid += sizes[gname]
+            row += sizes[gname]
+        return group_rows, entries
+
+    def _local_layout(self, groups, template) -> "_LocalRows":
+        """The layout of a rank's own rows: block r of every group's
+        stack (``policy.row_block``), which the template's stacks must
+        hold."""
+        axes = group_client_axes(self.mesh, [g.size for g in groups])
+        if axes is None:
+            raise ValueError(
+                f"local_rows needs every group's size to divide by the "
+                f"mesh's {self.mesh.size()} ranks, got "
+                f"{[g.size for g in groups]}")
+        self._shard(axes)                       # this rank is on the mesh
+        blocks = {g.name: row_block(self.mesh, g.size, axes) for g in groups}
+        for g in groups:
+            lo, hi = blocks[g.name]
+            for tree in template[g.name].values():
+                for path, x in tree_items(tree):
+                    if x.shape[0] != hi - lo:
+                        raise ValueError(
+                            f"local_rows: group {g.name}'s stack {path} has "
+                            f"{x.shape[0]} rows, this rank's block "
+                            f"[{lo}, {hi}) of its {g.size} rows")
+        group_rows, entries = self._layout(
+            {name: hi - lo for name, (lo, hi) in blocks.items()})
+        rows = np.concatenate([
+            np.arange(self._group_rows[n][0] + lo, self._group_rows[n][0] + hi)
+            for n, (lo, hi) in blocks.items()])
+        copies = np.concatenate([
+            np.arange(e.sid0 + blocks[e.gname][0], e.sid0 + blocks[e.gname][1])
+            for e in self.entries]) if self.entries else np.zeros(0, np.int64)
+        return _LocalRows(axes, blocks, group_rows, entries, rows, copies)
 
     def _shard(self, axes) -> Tuple[int, int]:
         """(this rank's block index, the number of blocks) along
@@ -237,26 +307,28 @@ class FederationPlan:
         if not mesh_mod.in_mesh(self.mesh):
             raise RuntimeError("a rank outside the plan's mesh runs no "
                                "part of its round")
-        return mesh_mod.shard_of(self.mesh, axes)
+        return shard_index(self.mesh, axes)
+
+    @property
+    def local_rows(self) -> bool:
+        """The plan rounds a rank's own rows (``local_rows=True`` on a
+        mesh of more than one rank)."""
+        return self._local is not None
 
     def row_block(self) -> Tuple[int, int]:
         """[lo, hi) of the dense buffer's rows this rank flattens and
         contracts: all of them on the single-device path."""
-        if self._client_axes is None:
-            return 0, self.n_rows
-        i, n = self._shard(self._client_axes)
-        per = self.n_rows // n
-        return i * per, (i + 1) * per
+        if self._client_axes is not None:
+            self._shard(self._client_axes)
+        return row_block(self.mesh, self.n_rows, self._client_axes)
 
     def group_block(self, gname: str) -> Tuple[int, int]:
         """[lo, hi) of group ``gname``'s rows (relative to the group) this
         rank streams in a chunked round: all of them unsharded."""
         r0, r1 = self._group_rows[gname]
-        if self._chunk_axes is None:
-            return 0, r1 - r0
-        i, n = self._shard(self._chunk_axes)
-        per = (r1 - r0) // n
-        return i * per, (i + 1) * per
+        if self._chunk_axes is not None:
+            self._shard(self._chunk_axes)
+        return row_block(self.mesh, r1 - r0, self._chunk_axes)
 
     def _indices(self, device: torch.device):
         """Per-layer owner rows/cids, per-copy maps and the row -> client
@@ -265,10 +337,12 @@ class FederationPlan:
         if idx is None:
             def t(a):
                 return torch.as_tensor(a, dtype=torch.int64, device=device)
+            loc = self._local
             idx = self._index_cache[device] = (
                 [(l, t(rows), t(cids)) for l, rows, cids in self._layer_rows],
                 t(self._copy_layer_pos), t(self._copy_cid),
-                t(np.asarray(self.row_cids, np.int64)))
+                t(np.asarray(self.row_cids, np.int64)),
+                None if loc is None else (t(loc.rows), t(loc.copies)))
         return idx
 
     def num_segments(self, num_clusters: int) -> int:
@@ -316,7 +390,7 @@ class FederationPlan:
         its participating members (``participation`` [K] 0/1, default
         all ones), and one with no participant gets a zero row."""
         C = int(num_clusters)
-        layer_rows, copy_lpos, copy_cid, _ = self._indices(weights.device)
+        layer_rows, copy_lpos, copy_cid, _, _ = self._indices(weights.device)
         A = torch.zeros((self.num_segments(C), self.n_rows),
                         dtype=torch.float32, device=weights.device)
         w = weights.float()
@@ -340,15 +414,19 @@ class FederationPlan:
     # -- flatten / unflatten ----------------------------------------------------
     def flatten(self, net_params: Dict[str, Dict[str, Any]],
                 device: torch.device,
-                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                rows: Optional[Tuple[int, int]] = None,
+                local: bool = False) -> torch.Tensor:
         """The dense ``theta [K, n_cols]`` (rows padded to
         ``row_stride``): each group's copies of its owned layers' leaves
         in their column runs, zero elsewhere. ``rows`` = (lo, hi) builds
-        only that row block, ``theta[lo:hi]``."""
-        lo, hi = (0, self.n_rows) if rows is None else rows
+        only that row block, ``theta[lo:hi]``; ``local`` builds ``[K / n,
+        n_cols]`` from a rank's own stacks (a ``local_rows`` plan)."""
+        group_rows = self._local.group_rows if local else self._group_rows
+        n_rows = self._local.n_rows if local else self.n_rows
+        lo, hi = (0, n_rows) if rows is None else rows
         theta = padded_rows(hi - lo, self.n_cols, device)
         for gname in self._groups_order:
-            r0, r1 = self._group_rows[gname]
+            r0, r1 = group_rows[gname]
             a, b = max(r0, lo), min(r1, hi)
             if a >= b:
                 continue
@@ -365,15 +443,16 @@ class FederationPlan:
 
     def unflatten(self, agg: torch.Tensor, seg_ids: torch.Tensor,
                   originals: Optional[Dict[str, Dict[str, Any]]] = None,
-                  recv: Optional[torch.Tensor] = None
+                  recv: Optional[torch.Tensor] = None, local: bool = False
                   ) -> Dict[str, Dict[str, Any]]:
         """Gather each copy's segment row into new stacked trees.
         ``recv`` ([n_copies] bool, with ``originals`` the pre-round
         params): copies of clients outside the round's cohort keep their
         original leaves instead of a segment aggregate they took no part
-        in."""
+        in. ``local``: ``seg_ids`` and ``recv`` are a rank's own copies,
+        which go into its own stacks (a ``local_rows`` plan)."""
         out: Dict[str, Dict[str, Any]] = {}
-        for e in self.entries:
+        for e in (self._local.entries if local else self.entries):
             k = e.row1 - e.row0
             block = agg[seg_ids[e.sid0:e.sid1], e.col0:e.col0 + e.width]
             offs = np.cumsum([0] + [s.size for s in e.leaves])
@@ -390,12 +469,18 @@ class FederationPlan:
             out.setdefault(e.gname, {})[str(e.layer)] = tree_from_items(items)
         return out
 
-    def _recv_args(self, net_params, cohort_mask, copy_cid):
-        """(originals, recv) for ``unflatten``: the per-copy participation
-        of a cohort round, nothing for a full round."""
-        if cohort_mask is None:
-            return None, None
-        return net_params, cohort_mask.bool()[copy_cid]
+    def _finish(self, agg: torch.Tensor, seg_ids: torch.Tensor, net_params,
+                cohort_mask: Optional[torch.Tensor]):
+        """``unflatten`` of the round's aggregates into this plan's rows
+        (a rank's own on a ``local_rows`` plan), non-members of a cohort
+        keeping their originals."""
+        _, _, copy_cid, _, local = self._indices(agg.device)
+        if local is not None:
+            seg_ids, copy_cid = seg_ids[local[1]], copy_cid[local[1]]
+        recv = None if cohort_mask is None else cohort_mask.bool()[copy_cid]
+        return self.unflatten(agg, seg_ids,
+                              None if recv is None else net_params, recv,
+                              local=local is not None)
 
     # -- the dense round ----------------------------------------------------------
     def _reduce(self, A: torch.Tensor, theta: torch.Tensor,
@@ -406,7 +491,14 @@ class FederationPlan:
                   ) -> torch.Tensor:
         """``A @ theta``, replicated: one contraction of the whole buffer,
         or on a sharded plan this rank's row block of theta against the
-        matching columns of A, summed over the data axes."""
+        matching columns of A, summed over the data axes; on a
+        ``local_rows`` plan the rank's own rows against their columns."""
+        if self._local is not None:
+            rows = self._indices(A.device)[4][0]
+            part = self._reduce(A.index_select(1, rows),
+                                self.flatten(net_params, A.device,
+                                             local=True), use_kernel)
+            return mesh_mod.all_reduce_sum(part, self.mesh, self._local.axes)
         if self._client_axes is None:
             return self._reduce(A, self.flatten(net_params, A.device),
                                 use_kernel)
@@ -424,13 +516,12 @@ class FederationPlan:
         """Round from the host weight matrix; ``cohort_mask`` ([K] bool,
         host) restores non-members' copies."""
         device = _params_device(net_params)
-        _, _, copy_cid, _ = self._indices(device)
         A_t = torch.as_tensor(A, dtype=torch.float32, device=device)
         agg = self._contract(net_params, A_t, use_kernel)
         mask = (None if cohort_mask is None else
                 torch.as_tensor(np.asarray(cohort_mask, bool), device=device))
-        return self.unflatten(agg, torch.as_tensor(seg_ids, device=device),
-                              *self._recv_args(net_params, mask, copy_cid))
+        return self._finish(agg, torch.as_tensor(seg_ids, device=device),
+                            net_params, mask)
 
     def aggregate_device(self, net_params: Dict[str, Dict[str, Any]],
                          weights: torch.Tensor, labels: torch.Tensor,
@@ -440,12 +531,10 @@ class FederationPlan:
         """Round from device weights/labels (label ids < the static
         ``num_clusters``). With ``cohort_mask`` ([K] bool, weights
         renormalized over the cohort) non-members keep their params."""
-        _, _, copy_cid, _ = self._indices(weights.device)
         A, seg_ids = self.device_weight_segments(
             weights, labels, num_clusters, participation=cohort_mask)
         agg = self._contract(net_params, A, use_kernel)
-        return self.unflatten(agg, seg_ids, *self._recv_args(
-            net_params, cohort_mask, copy_cid))
+        return self._finish(agg, seg_ids, net_params, cohort_mask)
 
     # -- the chunk-streamed round -----------------------------------------------
     def _accumulate_chunks(self, net_params, w_all, lab_all, part_all,
@@ -462,11 +551,12 @@ class FederationPlan:
         outside), the dense round's uniform-over-participants
         fallback. On a sharded plan the rank streams its block of every
         group's rows (``group_block``) and the partial ``(acc, mass)``
-        are summed over the data axes."""
+        are summed over the data axes; a ``local_rows`` plan's stacks
+        hold only that block."""
         C = int(num_clusters)
         c = self.chunk_size
         dev = w_all.device
-        _, _, _, row_cids = self._indices(dev)
+        _, _, _, row_cids, _ = self._indices(dev)
         S = zero_seg.shape[0]
         acc = padded_rows(S, self.n_cols, dev).zero_()
         mass = torch.zeros(S, dtype=torch.float32, device=dev)
@@ -479,11 +569,13 @@ class FederationPlan:
             b0, b1 = self.group_block(gname)
             if b1 <= b0:
                 continue
-            leaves = []                      # (column offset, [Kg, size])
+            # a local stack's row 0 is the block's first row
+            first = b0 if self._local is not None else 0
+            leaves = []                      # (column offset, [rows, size])
             for l, (c0, w) in sorted(self._col_runs.items()):
                 if l in self._owned[gname]:
                     for _, x in tree_items(net_params[gname][str(l)]):
-                        flat = x.reshape(Kg, -1)
+                        flat = x.reshape(x.shape[0], -1)
                         leaves.append((c0, flat))
                         c0 += flat.shape[1]
                 else:
@@ -491,7 +583,8 @@ class FederationPlan:
             for lo in range(b0, b1, c):
                 r = min(c, b1 - lo)
                 for off, flat in leaves:
-                    theta_c[:r, off:off + flat.shape[1]].copy_(flat[lo:lo + r])
+                    theta_c[:r, off:off + flat.shape[1]].copy_(
+                        flat[lo - first:lo - first + r])
                 if r < c:
                     theta_c[r:].zero_()
                 cid_c = row_cids[r0 + lo:r0 + lo + r]
@@ -523,7 +616,7 @@ class FederationPlan:
                              "chunk_size= to get_federation_plan")
         C = int(num_clusters)
         dev = weights.device
-        _, copy_lpos, copy_cid, _ = self._indices(dev)
+        _, copy_lpos, copy_cid, _, _ = self._indices(dev)
         S = self.num_segments(C)
         w_all = weights.float()
         lab_all = labels.long()
@@ -537,15 +630,17 @@ class FederationPlan:
         acc, mass = self._accumulate_chunks(net_params, w_all, lab_all, part,
                                             zero_seg, C, use_kernel)
         agg = acc.div_(torch.clamp_min(mass, 1e-20)[:, None])
-        return self.unflatten(agg, seg_of_copy, *self._recv_args(
-            net_params, cohort_mask, copy_cid))
+        return self._finish(agg, seg_of_copy, net_params, cohort_mask)
 
     # -- memory envelopes ---------------------------------------------------------
     def dense_buffer_bytes(self) -> int:
         """float32 bytes allocated for the dense ``theta [K, D]`` flat
         client buffer of the dense rounds, rows padded to ``row_stride``
         (the O(clients) term the chunk stream removes); on a sharded plan
-        one rank's row block, 1/n of it."""
+        one rank's row block, 1/n of it, and on a ``local_rows`` plan
+        the rank's own rows, 1/n too."""
+        if self._local is not None:
+            return 4 * self._local.n_rows * self.row_stride
         lo, hi = ((0, self.n_rows) if self._client_axes is None
                   else self.row_block())
         return 4 * (hi - lo) * self.row_stride
@@ -573,10 +668,11 @@ def _params_device(net_params) -> torch.device:
 def _plan_key(groups: Sequence[ProfileGroup], net: str, n_layers: int,
               template: Dict[str, Dict[str, Any]], mesh: Any = None,
               chunk_size: Optional[int] = None,
-              cohort_size: Optional[int] = None) -> Tuple:
+              cohort_size: Optional[int] = None,
+              local_rows: bool = False) -> Tuple:
     # the mesh (its ranks, shape and axis names: a mesh rebuilt over the
-    # same ranks hits the same plan), the chunk size and the cohort size
-    # join the topology and the leaf layout
+    # same ranks hits the same plan), the chunk size, the cohort size and
+    # the row layout join the topology and the leaf layout
     layout = tuple(
         (g.name, tuple(
             (l, tuple((path, tuple(x.shape)) for path, x in tree_items(tree)))
@@ -584,22 +680,26 @@ def _plan_key(groups: Sequence[ProfileGroup], net: str, n_layers: int,
         for g in groups)
     return (net, n_layers, tuple(
         (g.name, g.cut.as_tuple(), tuple(g.client_ids)) for g in groups),
-        layout, mesh_mod.mesh_key(mesh), chunk_size, cohort_size)
+        layout, mesh_mod.mesh_key(mesh), chunk_size, cohort_size,
+        bool(local_rows))
 
 
 def get_federation_plan(groups: Sequence[ProfileGroup], net: str,
                         n_layers: int, template: Dict[str, Dict[str, Any]],
                         plan_cache: Dict, mesh: Any = None,
                         chunk_size: Optional[int] = None,
-                        cohort_size: Optional[int] = None) -> FederationPlan:
-    """The cached plan of this topology, mesh, chunk size and cohort size
+                        cohort_size: Optional[int] = None,
+                        local_rows: bool = False) -> FederationPlan:
+    """The cached plan of this topology, mesh, chunk size, cohort size
     (the number of clients a cohort round samples, which only keys the
-    cache, as in the reference), built on first use."""
+    cache, as in the reference) and row layout (``local_rows``: the
+    template holds a rank's own rows), built on first use."""
     key = _plan_key(groups, net, n_layers, template, mesh, chunk_size,
-                    cohort_size)
+                    cohort_size, local_rows)
     if key not in plan_cache:
         plan_cache[key] = FederationPlan(groups, net, n_layers, template,
-                                         chunk_size=chunk_size, mesh=mesh)
+                                         chunk_size=chunk_size, mesh=mesh,
+                                         local_rows=local_rows)
     return plan_cache[key]
 
 
@@ -612,7 +712,8 @@ def federate_client_params(groups: Sequence[ProfileGroup],
                            plan_cache: Optional[Dict] = None,
                            chunk_size: Optional[int] = None,
                            mesh: Any = None,
-                           cohort_mask: Optional[np.ndarray] = None
+                           cohort_mask: Optional[np.ndarray] = None,
+                           local_rows: bool = False
                            ) -> Dict[str, Dict[str, Dict[str, Any]]]:
     """Aggregate client-held layers cluster-wise from host weights and
     labels (indexed by global client id). client_params: {group.name:
@@ -626,15 +727,17 @@ def federate_client_params(groups: Sequence[ProfileGroup],
     (``kld.cohort_federation_weights_np``, zero outside it). ``mesh``
     (a ``DeviceMesh``; every rank of it calls the round) shards the
     fused round's client rows; the legacy loop runs unsharded, as the
-    reference's does. Returns a new client_params with the aggregated
-    copies broadcast back."""
+    reference's does. ``local_rows`` (with ``mesh``): ``client_params``
+    hold this rank's block of every group's rows, and so does the
+    result. Returns a new client_params with the aggregated copies
+    broadcast back."""
     mesh_mod.check_mesh(mesh)
     n_layers = n_layers or N_LAYERS
     if not fused:
-        if chunk_size is not None or cohort_mask is not None:
+        if chunk_size is not None or cohort_mask is not None or local_rows:
             raise ValueError("the legacy loop is a full-participation "
-                             "dense oracle: chunk_size/cohort_mask "
-                             "require fused=True")
+                             "dense oracle on whole stacks: chunk_size/"
+                             "cohort_mask/local_rows require fused=True")
         return _federate_client_params_legacy(
             groups, client_params, weights, cluster_labels,
             n_layers=n_layers, use_kernel=use_kernel)
@@ -648,7 +751,8 @@ def federate_client_params(groups: Sequence[ProfileGroup],
         template = {g.name: client_params[g.name][net] for g in groups}
         plan = get_federation_plan(groups, net, n_lay, template, plan_cache,
                                    mesh=mesh, chunk_size=chunk_size,
-                                   cohort_size=cohort_size)
+                                   cohort_size=cohort_size,
+                                   local_rows=local_rows)
         if plan.n_rows == 0:
             continue
         if chunk_size is not None:
@@ -681,7 +785,7 @@ def federate_client_params_device(
         use_kernel: bool = False, plan_cache: Optional[Dict] = None,
         chunk_size: Optional[int] = None, mesh: Any = None,
         cohort_mask: Optional[torch.Tensor] = None,
-        cohort_size: Optional[int] = None
+        cohort_size: Optional[int] = None, local_rows: bool = False
         ) -> Dict[str, Dict[str, Dict[str, Any]]]:
     """Twin of ``federate_client_params`` taking device weights and
     labels (e.g. straight out of clustering); the weight matrix is
@@ -690,7 +794,8 @@ def federate_client_params_device(
     tensor, weights renormalized over the cohort) runs a sampled-cohort
     round and comes with its ``cohort_size``, the number of clients
     sampled (it keys the plan cache, as in the reference). ``mesh``
-    shards the round's client rows."""
+    shards the round's client rows; ``local_rows`` as in
+    ``federate_client_params``."""
     mesh_mod.check_mesh(mesh)
     if (cohort_mask is None) != (cohort_size is None):
         raise ValueError("cohort_mask and cohort_size come together")
@@ -701,7 +806,8 @@ def federate_client_params_device(
         template = {g.name: client_params[g.name][net] for g in groups}
         plan = get_federation_plan(groups, net, n_lay, template, plan_cache,
                                    mesh=mesh, chunk_size=chunk_size,
-                                   cohort_size=cohort_size)
+                                   cohort_size=cohort_size,
+                                   local_rows=local_rows)
         if plan.n_rows == 0:
             continue
         aggregate = (plan.aggregate_device if chunk_size is None
@@ -768,15 +874,16 @@ def fedavg_uniform(groups: Sequence[ProfileGroup],
                    use_kernel: bool = False, fused: bool = True,
                    plan_cache: Optional[Dict] = None,
                    chunk_size: Optional[int] = None, mesh: Any = None,
-                   cohort_mask: Optional[np.ndarray] = None
+                   cohort_mask: Optional[np.ndarray] = None,
+                   local_rows: bool = False
                    ) -> Dict[str, Dict[str, Dict[str, Any]]]:
     """Vanilla FedAvg (the warm-up rounds, paper §4.5): one global
     cluster, weights proportional to dataset size. With ``cohort_mask``
     the sizes renormalize over the cohort and non-members sit the round
     out. ``fused=False`` runs the legacy per-layer loop of
     ``federate_client_params`` (with ``use_kernel``, K1's S = 1 entry
-    point once per layer and leaf). ``mesh`` shards the fused round as it
-    shards a clustered one."""
+    point once per layer and leaf). ``mesh`` (and ``local_rows``) shards
+    the fused round as it shards a clustered one."""
     sizes = np.asarray(sizes, np.float64)
     if cohort_mask is not None:
         sizes = sizes * np.asarray(cohort_mask, bool)
@@ -785,4 +892,5 @@ def fedavg_uniform(groups: Sequence[ProfileGroup],
                                   n_layers=n_layers, use_kernel=use_kernel,
                                   fused=fused, plan_cache=plan_cache,
                                   chunk_size=chunk_size, mesh=mesh,
-                                  cohort_mask=cohort_mask)
+                                  cohort_mask=cohort_mask,
+                                  local_rows=local_rows)

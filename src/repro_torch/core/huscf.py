@@ -40,21 +40,43 @@ re-stages the dataset and empties the federation plan cache.
 
 ``generate`` runs the generator's split program in eval mode.
 
-Client-sharded federation (``fed_mesh=``, a ``DeviceMesh`` from
-``launch.mesh.make_federation_mesh``): every rank of the mesh builds the
-same trainer and holds the whole state and data, as the reference
-replicates its state on the mesh; every rank runs the same steps, and
-only the federation rounds shard the client rows (``core.federation``).
-Before each round the mesh's first rank broadcasts its whole state and
-EMA, and after the clustering its labels, weights, k and cohort, so that
-the ranks' partial sums come from one state: the card's convolution
-gradients are not deterministic, and replicas that ran the same steps
-can differ in their last bits. ``federate(mesh=None)`` forces the
-single-device round on a trainer with a mesh.
+Client-sharded training (``fed_mesh=``, a ``DeviceMesh`` from
+``launch.mesh.make_federation_mesh``; every rank of the mesh builds the
+same trainer). When the mesh's data axes divide every profile group's
+size (``data.pipeline.step_client_axes``), the step shards as the
+reference's partitions by client rows (``step_sharded``): rank r of n
+keeps block r of every group's rows (``sharding.policy.row_block``) of
+the dataset, the client parameters, Adam's moments and the
+middle-activation EMA, and runs those clients' heads and tails and their
+rows of every server layer. The server's parameters and moments are
+replicated: each server BatchNorm sums its statistics over the ranks
+(``launch.mesh.reduce_sum``, whose backward sums again), and the server's
+gradients are summed over the ranks in one call per net before Adam, so
+every rank applies the same update. Each rank draws the whole batch and
+keeps its rows, so the step equals the unsharded one up to the order of
+the reduced sums. Rounds run on the rank's own rows
+(``core.federation``, ``local_rows``); the clustering reads the gathered
+EMA, and the first rank's labels, weights, k and cohort are broadcast.
+``generate``, ``whole_state``/``load_whole_state``, checkpoints and
+every regroup gather the whole state, run the unsharded code and keep
+the rows of the (new) grouping (``_whole``). A sharded step has
+collectives inside it, which a CUDA graph cannot capture through gloo,
+so on the card it needs ``fused_epoch=False``.
+
+When a group does not divide, the step is replicated, as the
+reference's ``sanitize`` replicates what it cannot split: every rank
+holds the whole state and data and runs the same steps, and only the
+rounds shard the client rows. Before each such round the first rank
+broadcasts its whole state and EMA (``sync_replicas``): the card's
+convolution gradients are not deterministic, and replicas that ran the
+same steps can differ in their last bits. ``federate(mesh=None)``
+forces the single-device round on a trainer with a mesh.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import time
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -81,13 +103,15 @@ from repro_torch.core.splitting import (ProfileGroup, client_owned_layers,
                                         group_by_profile, layer_pair,
                                         server_union_span)
 from repro_torch.data.partition import ClientSpec
-from repro_torch.data.pipeline import sample_batch, stage_clients
+from repro_torch.data.pipeline import (sample_batch, stage_clients,
+                                       step_client_axes)
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import gan
 from repro_torch.models.gan import (DISC_LAYER_DEFS, DISC_MIDDLE_FEATURES,
                                     GEN_LAYER_DEFS, Z_DIM)
 from repro_torch.optim.optimizers import AdamState, adam
-from repro_torch.tree import tree_from_items, tree_items, tree_map
+from repro_torch.sharding.policy import data_axes, row_block, shard_index
+from repro_torch.tree import tree_from_items, tree_items, tree_leaves, tree_map
 
 _EMA_DECAY = 0.8                     # middle-activation EMA (stage 3 input)
 
@@ -127,20 +151,23 @@ class HuSCFConfig:
 
 def build_net_apply(groups: Sequence[ProfileGroup], net: str,
                     capture_middle: bool = False,
-                    concat_groups: bool = True) -> Callable:
+                    concat_groups: bool = True, reduce=None) -> Callable:
     """Returns ``apply(client_params, server_params, inputs, train) ->
     (outputs {gname: [K, b, ...]}, new_client, new_server, middles)``
     with ``inputs`` = {gname: tuple of per-client-stacked tensors fed to
     layer 0}: the executor of the compiled ``SplitProgram``
-    (``core.segments.make_apply``)."""
+    (``core.segments.make_apply``). On a rank of a client-sharded step
+    ``groups`` hold the rank's rows and ``reduce`` sums the server's
+    BatchNorm statistics over the ranks."""
     return make_apply(compile_split_program(groups, net),
                       capture_middle=capture_middle,
-                      concat_groups=concat_groups)
+                      concat_groups=concat_groups, reduce=reduce)
 
 
 def build_net_apply_legacy(groups: Sequence[ProfileGroup], net: str,
                            capture_middle: bool = False,
-                           concat_groups: bool = True) -> Callable:
+                           concat_groups: bool = True,
+                           reduce=None) -> Callable:
     """``build_net_apply``'s contract without a ``SplitProgram``: the
     reference's legacy hand-rolled per-group loops, which derive each
     server layer's active groups and each group's departure inline from
@@ -148,7 +175,7 @@ def build_net_apply_legacy(groups: Sequence[ProfileGroup], net: str,
     order, so the two agree bit for bit; this one is the oracle behind
     ``HuSCFConfig.split_program=False``. ``concat_groups=False`` is the
     no-concat server schedule (per-group BatchNorm statistics,
-    ``core.segments``)."""
+    ``core.segments``); ``reduce`` as in ``build_net_apply``."""
     defs = NET_LAYER_DEFS[net]
     n = len(defs)
     middle = n // 2
@@ -175,7 +202,7 @@ def build_net_apply_legacy(groups: Sequence[ProfileGroup], net: str,
                       < layer_pair(g.cut, net)[1]]
             parts, new_server[str(l)] = server_pass(
                 defs[l], server_params[str(l)],
-                [bufs[g.name] for g in active], train, concat_groups)
+                [bufs[g.name] for g in active], train, concat_groups, reduce)
             for g, part in zip(active, parts):
                 bufs[g.name] = part
                 if capture_middle and l == middle:
@@ -355,7 +382,9 @@ class GraphPool:
 
 def make_epoch_fn(groups: Sequence[ProfileGroup], step_core: Callable,
                   sample: Callable, n_steps: int, unroll: int = 1,
-                  graphs: Optional[GraphPool] = None) -> Callable:
+                  graphs: Optional[GraphPool] = None,
+                  rows: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> Callable:
     """The fused epoch (the reference's ``make_epoch_fn``), shared by the
     trainer's card and CPU paths.
 
@@ -377,9 +406,12 @@ def make_epoch_fn(groups: Sequence[ProfileGroup], step_core: Callable,
     each, a remainder in a graph of its own, each captured on its first
     use. A graph reads and writes the tensors it was captured on, so
     every later call must pass the same carry: another raises.
+
+    ``rows`` are each group's EMA rows (default: its client ids; a
+    client-sharded step's EMA holds the rank's rows only).
     """
     unroll = max(1, min(n_steps, unroll))
-    rows: Dict[str, torch.Tensor] = {}
+    rows = dict(rows or {})
     captured: Dict[int, Any] = {}
     carry_ref: List[Any] = []
 
@@ -440,7 +472,8 @@ class HuSCFTrainer:
     batch ({"real_img", "real_y", "z", "fake_y"} -> {gname: tensor});
     without it batches are drawn on the device from the staged dataset.
     A host callable cannot be replayed, so on the card it needs
-    ``fused_epoch=False``.
+    ``fused_epoch=False``. It returns whole batches; a client-sharded
+    trainer keeps its rows of them.
 
     Fused epochs (``cfg.fused_epoch``, the default) run ``make_epoch_fn``
     over the trainer's carry: the state's tensors, the middle-activation
@@ -453,6 +486,10 @@ class HuSCFTrainer:
     step; on the CPU the same steps run eagerly. The losses are read
     back once per epoch. ``cfg.fused_epoch=False`` runs the per-step
     loop, the oracle.
+
+    ``step_sharded`` says whether the step runs on this rank's rows of a
+    ``fed_mesh`` (see the module docstring); it follows from the mesh
+    and the groups, and a regroup may switch it.
     """
 
     def __init__(self, clients: Sequence[ClientSpec],
@@ -464,9 +501,9 @@ class HuSCFTrainer:
                  device="cuda",
                  batch_source: Optional[Callable[[], Dict]] = None,
                  fed_mesh: Any = None):
-        # fed_mesh: a DeviceMesh for client-sharded federation rounds
-        # (launch.mesh.make_federation_mesh); None = the single-device
-        # rounds. It is a topology, so it rides the trainer, not the config
+        # fed_mesh: a DeviceMesh for the client-sharded step and rounds
+        # (launch.mesh.make_federation_mesh); None = one device. It is a
+        # topology, so it rides the trainer, not the config
         mesh_mod.check_mesh(fed_mesh)
         self.fed_mesh = fed_mesh
         self.device = resolve_device(device)
@@ -506,6 +543,7 @@ class HuSCFTrainer:
         self._epoch_fns: Dict[int, Callable] = {}
         self._graph_pool = (GraphPool(self.device)
                             if self.device.type == "cuda" else None)
+        self._set_layout()
         self.state = self._init_state(
             torch.Generator().manual_seed(config.seed))
         self._dataset = stage_clients(self.groups, self.clients, self.device,
@@ -525,7 +563,8 @@ class HuSCFTrainer:
         # change)
         self._ga_gen = self._generator(config.seed + 4)
         self._searchers: Dict = {}
-        self._mid_ema = torch.zeros((K, DISC_MIDDLE_FEATURES),
+        self._mid_ema = torch.zeros((len(self._local_ids),
+                                     DISC_MIDDLE_FEATURES),
                                     dtype=torch.float32, device=self.device)
         self._ema_init = False           # host mirror of the device flag
         # the fused epoch's own carry: the EMA's device flag, the last
@@ -537,11 +576,8 @@ class HuSCFTrainer:
         self._carry_inputs: Tuple = ()
         self._sizes_dev = torch.as_tensor(self.sizes, dtype=torch.float32,
                                           device=self.device)
-        self._rows = {g.name: torch.as_tensor(g.client_ids, device=self.device)
-                      for g in self.groups}
         self._fed_plans: Dict = {}
         self._round_mesh = None          # the sharded mesh of this round
-        self._build_applies()
         self.fed_round = 0
         self.epoch = 0
         self.history: List[Dict[str, float]] = []
@@ -550,8 +586,156 @@ class HuSCFTrainer:
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
+    # -- the step's layout over a mesh --------------------------------------
+    @property
+    def step_sharded(self) -> bool:
+        """The step runs this rank's rows of every group (the mesh's data
+        axes divide every group's size); False: every rank holds and runs
+        all of them."""
+        return self._shard_axes is not None
+
+    def _set_layout(self, whole: bool = False) -> None:
+        """Lay the step out for the current groups and mesh: on a sharded
+        step (``data.pipeline.step_client_axes``) this rank runs block r
+        of every group's rows (``policy.row_block``), whose EMA rows are
+        the rank's, in group order; otherwise every row, with the EMA
+        indexed by global client id. ``whole`` lays out every row, for
+        the gathered state of ``_whole``. Rebuilds both nets' executors."""
+        mesh = self.fed_mesh
+        axes = None if whole else step_client_axes(self.groups, mesh)
+        self._shard_axes = axes
+        self._blocks = {g.name: row_block(mesh, g.size, axes)
+                        for g in self.groups}
+        self._step_groups = list(self.groups) if axes is None else [
+            dataclasses.replace(g, client_ids=g.client_ids[lo:hi])
+            for g in self.groups for lo, hi in [self._blocks[g.name]]]
+        self._local_ids = [c for g in self._step_groups for c in g.client_ids]
+        if axes is None:
+            self._rows = {g.name: self._index(g.client_ids)
+                          for g in self.groups}
+        else:
+            off, self._rows = 0, {}
+            for g in self._step_groups:
+                self._rows[g.name] = torch.arange(off, off + g.size,
+                                                  device=self.device)
+                off += g.size
+        self._reduce = (None if axes is None else functools.partial(
+            mesh_mod.reduce_sum, mesh=mesh, axes=axes))
+        self._build_applies()
+
+    @staticmethod
+    def _is_rows(path: Tuple[str, ...]) -> bool:
+        """A client stack of the state (parameters or Adam's moments):
+        ``(net, "client", ...)`` or ``(opt, "mu" | "nu", "client",
+        ...)``."""
+        return "client" in path[1:3]
+
+    def _gather(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """The whole state from every rank's rows (a collective)."""
+        return _state_from_carry(mesh_mod.gather_state(
+            _carry_items(state), self.fed_mesh, self._shard_axes,
+            self._is_rows), state["step"])
+
+    def _keep(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows of a whole state."""
+        return _state_from_carry(mesh_mod.keep_rows(
+            _carry_items(state), self.fed_mesh, self._shard_axes,
+            self._is_rows), state["step"])
+
+    def _whole_ema(self) -> torch.Tensor:
+        """The whole ``[K, F]`` EMA, rows by global client id (on a
+        sharded step a collective: every group's rows gathered)."""
+        if not self.step_sharded:
+            return self._mid_ema
+        parts = list(torch.split(self._mid_ema,
+                                 [g.size for g in self._step_groups]))
+        whole = torch.empty((len(self.clients), self._mid_ema.shape[1]),
+                            dtype=self._mid_ema.dtype, device=self.device)
+        for g, x in zip(self.groups, mesh_mod.all_gather_rows(
+                parts, self.fed_mesh, self._shard_axes)):
+            whole.index_copy_(0, self._index(g.client_ids), x)
+        return whole
+
+    def _lay_out(self, sync: bool = False) -> None:
+        """``_set_layout`` for the current groups, with the state and EMA
+        whole; when the step shards they keep this rank's rows, after
+        the first rank's whole state is broadcast with ``sync`` (replicas
+        that trained apart)."""
+        self._set_layout()
+        if self.step_sharded:
+            if sync:
+                self.sync_replicas(self.fed_mesh)
+            self.state = self._keep(self.state)
+            self._mid_ema = self._mid_ema.index_select(
+                0, self._index(self._local_ids))
+
+    @contextlib.contextmanager
+    def _whole(self):
+        """Run unsharded code on the whole state: a sharded trainer
+        gathers its state and EMA and lays out every row (every rank of
+        the mesh enters), and on leaving keeps the rows of the grouping
+        the body left, which may have changed (or need none: a grouping
+        that does not divide replicates). Nothing happens on a trainer
+        whose step does not shard."""
+        if not self.step_sharded:
+            yield
+            return
+        self.state, self._mid_ema = self._gather(self.state), self._whole_ema()
+        self._set_layout(whole=True)
+        try:
+            yield
+        finally:
+            self._lay_out()
+
+    def whole_state(self) -> Dict[str, Any]:
+        """The trainer's state with every client row (a sharded trainer
+        gathers it: every rank of the mesh calls this), e.g. for
+        ``bridge.state_to_numpy``."""
+        return self._gather(self.state) if self.step_sharded else self.state
+
+    def load_whole_state(self, state: Dict[str, Any],
+                         ema: Optional[torch.Tensor] = None) -> None:
+        """Replace the state (and the ``[K, F]`` EMA) with whole ones; a
+        sharded trainer keeps its rows."""
+        self.state = self._keep(state) if self.step_sharded else state
+        if ema is not None:
+            self._mid_ema = (ema.index_select(0, self._index(self._local_ids))
+                             if self.step_sharded else ema)
+            self._ema_init = True
+
+    def _is_first(self) -> bool:
+        """This rank writes what the mesh's ranks share (the first along
+        its data axes; the only one without a mesh)."""
+        mesh = self.fed_mesh
+        return (mesh is None or mesh.size() == 1 or
+                shard_index(mesh, data_axes(mesh))[0] == 0)
+
+    def save_checkpoint(self, path: str) -> None:
+        """Write the whole state in the reference's checkpoint format
+        (``checkpoint.save_checkpoint``), at the epoch; every rank of a
+        mesh calls it, its first rank writes, and every rank returns once
+        the file is written."""
+        from repro_torch.bridge import state_to_numpy
+        from repro_torch.checkpoint import save_checkpoint
+        whole = self.whole_state()
+        if self._is_first():
+            save_checkpoint(path, state_to_numpy(whole), step=self.epoch)
+        mesh_mod.barrier(self.fed_mesh)   # written before any rank reads
+
+    def load_checkpoint(self, path: str) -> int:
+        """Load a whole state written by ``save_checkpoint`` (or the
+        reference); a sharded trainer keeps its rows. Returns the step
+        the file records."""
+        from repro_torch.bridge import state_from_numpy, state_to_numpy
+        from repro_torch.checkpoint import load_checkpoint
+        back, step = load_checkpoint(path, state_to_numpy(self.whole_state()))
+        self.load_whole_state(state_from_numpy(back, self.device))
+        return step
+
     # -- initialization ----------------------------------------------------
     def _init_state(self, gen: torch.Generator) -> Dict[str, Any]:
+        """The whole state's draws from ``gen`` (the unsharded trainer's),
+        of which a sharded step keeps this rank's rows, group by group."""
         dev = self.device
         params = {}
         for net, defs in (("G", GEN_LAYER_DEFS), ("D", DISC_LAYER_DEFS)):
@@ -563,8 +747,11 @@ class HuSCFTrainer:
             for g in self.groups:
                 h, t = ((g.cut.g_h, g.cut.g_t) if net == "G"
                         else (g.cut.d_h, g.cut.d_t))
-                client[g.name] = {str(l): defs[l].init(g.size, gen, dev)
-                                  for l in list(range(h)) + list(range(t, n))}
+                client[g.name] = tree_from_items(mesh_mod.keep_rows(
+                    list(tree_items({str(l): defs[l].init(g.size, gen, dev)
+                                     for l in list(range(h))
+                                     + list(range(t, n))})),
+                    self.fed_mesh, self._shard_axes, lambda _: True))
             params[net] = {"client": client, "server": server}
         return {"G": params["G"], "D": params["D"],
                 "opt_g": self._init_opt(params["G"]),
@@ -579,20 +766,34 @@ class HuSCFTrainer:
     # -- one training step ----------------------------------------------------
     def _mean_client_loss(self, logits: Dict[str, torch.Tensor],
                           target: float) -> torch.Tensor:
+        """The mean over all clients of each client's mean BCE; on a
+        sharded step this rank's clients' share of it (their sum over
+        the global client count), whose sum over the ranks is the
+        loss."""
         total = sum(g.size for g in self.groups)
         tot = 0.0
-        for g in self.groups:
+        for g in self._step_groups:
             tot = tot + gan.bce_logits(logits[g.name].reshape(-1),
                                        target) * g.size
         return tot / total
+
+    def _sum_server_grads(self, grads: Dict[str, Any]) -> None:
+        """A sharded step's server gradients, summed in place over the
+        ranks in one collective: every replica applies the same
+        update."""
+        if self.step_sharded:
+            mesh_mod.all_reduce_flat(tree_leaves(grads["server"]),
+                                     self.fed_mesh, self._shard_axes)
 
     def _step(self, st: Dict[str, Any], batch: Dict[str, Dict[str, Any]],
               inplace: bool = False):
         """One D then G update from ``st`` on ``batch``: returns (the new
         state, the losses, the middle activations). ``inplace`` writes
         the new parameters, statistics, moments and steps into ``st``'s
-        own tensors, one leaf at a time, and returns ``st``."""
-        groups = self.groups
+        own tensors, one leaf at a time, and returns ``st``. On a sharded
+        step ``batch`` holds this rank's rows, and the losses returned
+        are summed over the ranks."""
+        groups = self._step_groups
         g_params, d_params = st["G"], st["D"]
         gen_in = {g.name: (batch["z"][g.name], batch["fake_y"][g.name])
                   for g in groups}
@@ -616,6 +817,7 @@ class HuSCFTrainer:
             return loss, ({"client": ncr, "server": nsr}, mids)
 
         loss_d, (d_bn, mids), grads_d = value_and_grad(d_loss, d_params)
+        self._sum_server_grads(grads_d)
         opt_d, d_new = self._opt_update(st["opt_d"], grads_d, d_params,
                                         inplace=inplace)
         del grads_d
@@ -637,9 +839,14 @@ class HuSCFTrainer:
                     {"client": ncg, "server": nsg})
 
         loss_g, g_bn, grads_g = value_and_grad(g_loss, g_params)
+        self._sum_server_grads(grads_g)
         opt_g, g_new = self._opt_update(st["opt_g"], grads_g, g_params,
                                         inplace=inplace)
         del grads_g
+        if self.step_sharded:
+            both = mesh_mod.all_reduce_sum(torch.stack([loss_d, loss_g]),
+                                           self.fed_mesh, self._shard_axes)
+            loss_d, loss_g = both[0], both[1]
         metrics = {"loss_d": loss_d, "loss_g": loss_g}
         if inplace:
             merge_bn_(g_new, g_bn)
@@ -649,10 +856,15 @@ class HuSCFTrainer:
                  "step": st["step"] + 1}, metrics, mids)
 
     def _sample(self, gen: torch.Generator):
-        """One training batch: the ``batch_source``'s next, else drawn on
-        the device from the staged dataset with ``gen``."""
+        """One training batch: the ``batch_source``'s next (this rank's
+        rows of it on a sharded step), else drawn on the device from the
+        staged dataset with ``gen``."""
         if self._batch_source is not None:
-            return self._batch_source()
+            batch = self._batch_source()
+            if not self.step_sharded:
+                return batch
+            return {f: {g: x[slice(*self._blocks[g])] for g, x in d.items()}
+                    for f, d in batch.items()}
         return sample_batch(self._dataset, gen, batch=self.cfg.batch,
                             z_dim=Z_DIM, num_classes=gan.NUM_CLASSES)
 
@@ -663,9 +875,11 @@ class HuSCFTrainer:
         # the card until the garbage collector found it
         me = weakref.proxy(self)
         return make_epoch_fn(
-            self.groups, lambda st, b: me._step(st, b, inplace=True)[1:],
+            self._step_groups,
+            lambda st, b: me._step(st, b, inplace=True)[1:],
             lambda gen: me._sample(gen), n_steps,
-            unroll=self.cfg.epoch_unroll or 1, graphs=self._graph_pool)
+            unroll=self.cfg.epoch_unroll or 1, graphs=self._graph_pool,
+            rows=self._rows)
 
     def _drop_graphs(self) -> None:
         """Everything captured on the old carry or grouping goes: the
@@ -714,6 +928,13 @@ class HuSCFTrainer:
             raise ValueError("a batch_source is a host callable and cannot "
                              "be replayed in a CUDA graph: pass "
                              "fused_epoch=False to train from it on the card")
+        if self._graph_pool is not None and self.step_sharded:
+            raise ValueError(
+                f"a client-sharded step on {self.fed_mesh.size()} ranks "
+                "runs collectives inside it, which gloo cannot run in a "
+                "captured CUDA graph (and NCCL refuses two ranks on one "
+                "GPU): pass fused_epoch=False (the launcher's --per-step) "
+                "to train it on the card")
         self._adopt_carry()
         fn = self._epoch_fns.get(n_steps)
         if fn is None:
@@ -736,8 +957,9 @@ class HuSCFTrainer:
         for _ in range(n_steps):
             self.state, metrics, mids = self._step(
                 self.state, self._sample(self._train_gen))
-            # middle-activation EMA, one [K, F] row per global client
-            for g in self.groups:
+            # middle-activation EMA, one [K, F] row per global client (a
+            # sharded step's rows: this rank's)
+            for g in self._step_groups:
                 m = mids[g.name].detach().float()
                 rows = self._rows[g.name]
                 self._mid_ema[rows] = (
@@ -757,10 +979,12 @@ class HuSCFTrainer:
         return metrics
 
     def middle_activations(self) -> np.ndarray:
+        """The whole ``[K, F]`` EMA on the host (a sharded trainer gathers
+        it: every rank of the mesh calls this)."""
         if not self._ema_init:
             raise RuntimeError("middle_activations() before any training "
                                "step: the EMA is empty")
-        return self._mid_ema.detach().cpu().clone().numpy()
+        return self._whole_ema().detach().cpu().clone().numpy()
 
     _MESH_DEFAULT = object()     # sentinel: mesh=None must stay sayable
 
@@ -778,17 +1002,25 @@ class HuSCFTrainer:
         ``use_label_kld`` is set, which take the host numpy path.
 
         ``mesh`` overrides the trainer's ``fed_mesh`` for this round;
-        ``mesh=None`` forces the single-device round. On a mesh of more
-        than one rank every rank of it calls ``federate``.
+        ``mesh=None`` forces the single-device round (a sharded trainer
+        runs it on its gathered state, ``_whole``). On a mesh of more
+        than one rank every rank of it calls ``federate``. A sharded
+        trainer rounds its own rows; a replicated one first takes the
+        first rank's state (``sync_replicas``).
 
         Tests feed the reference's draws: ``init_centers`` maps each
         candidate k to the k-means++ centres of the device path, and
         ``cohort_ids`` replaces this round's cohort draw."""
         mesh = self.fed_mesh if mesh is self._MESH_DEFAULT else mesh
         mesh_mod.check_mesh(mesh)
+        if self.step_sharded and \
+                mesh_mod.mesh_key(mesh) != mesh_mod.mesh_key(self.fed_mesh):
+            with self._whole():
+                return self.federate(use_label_kld, init_centers, cohort_ids,
+                                     mesh)
         self._round_mesh = mesh if mesh is not None and mesh.size() > 1 \
             else None
-        if self._round_mesh is not None:
+        if self._round_mesh is not None and not self.step_sharded:
             self.sync_replicas(self._round_mesh)
         self.fed_round += 1
         recut = None
@@ -839,7 +1071,8 @@ class HuSCFTrainer:
                               use_kernel=self.cfg.use_kernel,
                               plan_cache=self._fed_plans,
                               chunk_size=self.cfg.agg_chunk,
-                              mesh=self._round_mesh, **kwargs)
+                              mesh=self._round_mesh,
+                              local_rows=self.step_sharded, **kwargs)
             self.state[net]["client"] = {g.name: out[g.name][net]
                                          for g in self.groups}
 
@@ -847,7 +1080,8 @@ class HuSCFTrainer:
         """Overwrite this rank's trainer state and middle-activation EMA,
         in place, with the mesh's first rank's (one broadcast per
         dtype). In place, the fused epoch's captured graphs keep reading
-        the same tensors."""
+        the same tensors. Replicas only: a sharded step's rows differ by
+        rank, and its server replicas never drift."""
         tensors = [x for _, x in _carry_items(self.state)]
         mesh_mod.broadcast_flat(tensors + [self._mid_ema], mesh)
 
@@ -856,7 +1090,7 @@ class HuSCFTrainer:
         if not self._ema_init:
             raise RuntimeError("federate() before any training step: the "
                                "middle-activation EMA is empty")
-        acts = self._mid_ema
+        acts = self._whole_ema()
         labels, k_sel, sil = cluster_activations(
             acts, k=self.cfg.num_clusters, use_kernel=self.cfg.use_kernel,
             gen=self._cluster_gen, init_centers=init_centers)
@@ -1099,7 +1333,20 @@ class HuSCFTrainer:
         """Swap in a new (clients, devices, cuts) population online:
         migrate parameters, optimizer and EMA, re-stage the dataset,
         rebuild the split programs and empty the federation plan cache
-        (its keys hold the old groups)."""
+        (its keys hold the old groups). It runs on the whole state
+        (``_whole``); the new grouping's layout decides whether the step
+        shards, and a replicated trainer that starts to shard first takes
+        the first rank's state."""
+        was_sharded = self.step_sharded
+        with self._whole():
+            self._regroup(new_clients, new_devices, new_cuts, old_of)
+        if not was_sharded:
+            self._lay_out(sync=True)
+
+    def _regroup(self, new_clients: Sequence[ClientSpec],
+                 new_devices: Sequence[DeviceProfile],
+                 new_cuts: Sequence[Cut], old_of: Sequence[int]) -> None:
+        """``_rebuild_population``'s body on the whole state."""
         K_new = len(new_clients)
         if self.cfg.cohort_size is not None and not (
                 1 <= self.cfg.cohort_size <= K_new):
@@ -1144,26 +1391,33 @@ class HuSCFTrainer:
         self._mid_ema = new_ema
         self._sizes_dev = torch.as_tensor(self.sizes, dtype=torch.float32,
                                           device=self.device)
-        self._rows = {g.name: self._index(g.client_ids) for g in self.groups}
         # everything keyed on the old grouping is stale
         self._fed_plans.clear()
         self._drop_graphs()
-        self._build_applies()
 
     def _build_applies(self) -> None:
-        """Both nets' executors for the current groups: the compiled
-        program, or with ``cfg.split_program=False`` the legacy loops."""
+        """Both nets' executors for the step's groups (a sharded step's:
+        this rank's rows, the server's statistics summed over the ranks):
+        the compiled program, or with ``cfg.split_program=False`` the
+        legacy loops."""
         build = (build_net_apply if self.cfg.split_program
                  else build_net_apply_legacy)
-        self._gen_apply = build(self.groups, "G")
-        self._disc_apply = build(self.groups, "D", capture_middle=True)
+        self._gen_apply = build(self._step_groups, "G", reduce=self._reduce)
+        self._disc_apply = build(self._step_groups, "D", capture_middle=True,
+                                 reduce=self._reduce)
 
     # -- generation for evaluation ------------------------------------------
     def generate(self, n_per_client_batch: int, labels: np.ndarray
                  ) -> Tuple[np.ndarray, np.ndarray]:
         """Generate len(labels) images by cycling clients: ([N, 28, 28, 1]
         images, [N] labels), with the generator's split program in eval
-        mode."""
+        mode (a sharded trainer on its gathered state: every rank of the
+        mesh calls this, and each gets every image)."""
+        with self._whole():
+            return self._generate(n_per_client_batch, labels)
+
+    def _generate(self, n_per_client_batch: int, labels: np.ndarray
+                  ) -> Tuple[np.ndarray, np.ndarray]:
         labels = np.asarray(labels)
         n_total = len(labels)
         g_params = self.state["G"]

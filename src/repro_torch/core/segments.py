@@ -16,6 +16,9 @@ per-group client tails. ``make_apply`` executes it:
   ``concat_groups=False`` each group runs through the shared server
   weights on its own, so the statistics are per group ("ghost BN") and
   the server's new running statistics are their equal-weight mean;
+* on a rank of a client-sharded step (``reduce=``) the program runs the
+  rank's rows of every group, and each server BatchNorm sums its
+  statistics over the ranks, so they span the same rows as unsharded;
 * the captured middle is each client's batch mean of the middle
   layer's output, flattened in H, W, C order.
 
@@ -123,11 +126,12 @@ def tail_pass(defs, params, x, start: int, n: int, train: bool):
     return x, new
 
 
-def _server_layer(layer_def, params, x, train: bool):
+def _server_layer(layer_def, params, x, train: bool, reduce=None):
     """A shared server layer on concatenated rows [N, ...]: run it as a
-    single copy (K = 1) of the client-batched layer."""
+    single copy (K = 1) of the client-batched layer; ``reduce`` sums its
+    BatchNorm statistics over the ranks that hold the other rows."""
     y, upd = layer_def.apply(tree_map(lambda t: t[None], params), x[None],
-                             train)
+                             train, reduce=reduce)
     return y[0], tree_map(lambda t: t[0], upd)
 
 
@@ -150,31 +154,37 @@ def _mean_stats(params, updates):
 
 
 def server_pass(layer_def, params, xs: Sequence[torch.Tensor], train: bool,
-                concat_groups: bool = True):
+                concat_groups: bool = True, reduce=None):
     """One shared server layer over the active groups' rows ``xs`` (in
     group order): returns (each group's output rows, the layer's new
     params). ``concat_groups`` runs the rows as one batch; otherwise
     each group runs on its own and the statistics merge by
-    ``_mean_stats``."""
+    ``_mean_stats``. ``reduce`` (a client-sharded step's
+    ``launch.mesh.reduce_sum`` over the mesh) sums each BatchNorm's
+    statistics over the ranks, which hold the other rows of every
+    group."""
     if not concat_groups:
-        runs = [_server_layer(layer_def, params, x, train) for x in xs]
+        runs = [_server_layer(layer_def, params, x, train, reduce)
+                for x in xs]
         return [y for y, _ in runs], _mean_stats(params,
                                                  [u for _, u in runs])
     x = torch.cat(xs, 0) if len(xs) > 1 else xs[0]
-    y, new = _server_layer(layer_def, params, x, train)
+    y, new = _server_layer(layer_def, params, x, train, reduce)
     if len(xs) == 1:
         return [y], new
     return list(torch.split(y, [x.shape[0] for x in xs], 0)), new
 
 
 def make_apply(program: SplitProgram, capture_middle: bool = False,
-               concat_groups: bool = True) -> Callable:
+               concat_groups: bool = True, reduce=None) -> Callable:
     """Returns ``apply(client_params, server_params, inputs, train) ->
     (outputs {gname: [K, b, ...]}, new_client, new_server, middles)``
     with ``inputs`` = {gname: tuple of per-client-stacked tensors fed
     to layer 0}. ``concat_groups=False`` is the no-concat server
     schedule (per-group BatchNorm statistics, see the module
-    docstring)."""
+    docstring). ``reduce`` runs the program on a rank's rows of a
+    client-sharded step: the server layers' statistics are summed over
+    the ranks with it (``server_pass``)."""
     defs = NET_LAYER_DEFS[program.net]
     n = program.n_layers
     middle = program.middle
@@ -198,7 +208,8 @@ def make_apply(program: SplitProgram, capture_middle: bool = False,
             l = step.layer
             parts, new_server[str(l)] = server_pass(
                 defs[l], server_params[str(l)],
-                [bufs[gname] for gname in step.active], train, concat_groups)
+                [bufs[gname] for gname in step.active], train, concat_groups,
+                reduce)
             for gname, part in zip(step.active, parts):
                 bufs[gname] = part
                 if capture_middle and l == middle:

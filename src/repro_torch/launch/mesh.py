@@ -14,9 +14,18 @@ each (the counterpart of the reference's forced host devices, which its
 tests use to build meshes of 1-8 devices in one process). The backend
 is picked explicitly and logged: NCCL when every rank has a GPU of its
 own; gloo on the CPU and when ranks share a GPU, since NCCL refuses two
-ranks on one device. Only ``all_reduce`` and ``broadcast`` are used,
-which both backends take on CUDA tensors (gloo stages them through the
-host).
+ranks on one device. Only ``all_reduce``, ``all_gather`` and
+``broadcast`` are used, which both backends take on CUDA tensors (gloo
+stages them through the host).
+
+The collectives of the client-sharded training step: ``reduce_sum``
+(``all_reduce_sum`` as an autograd function whose backward is again a
+sum over the ranks: the server's BatchNorm statistics),
+``all_reduce_flat`` (the server's gradients, one call per net),
+``all_gather_rows`` (per-group row blocks made whole: the EMA before a
+round) and ``gather_state`` / ``keep_rows``, which turn a rank's state
+into the whole state and back. Each is a no-op, bit for bit, without a
+mesh or on a 1-rank mesh; ``calls`` counts what each issues.
 
 ``make_federation_mesh(n)`` is the 1-D ``("data",)`` mesh over the
 first ``n`` ranks of the process group. In a process without one, a
@@ -35,13 +44,14 @@ import sys
 import tempfile
 import time
 import traceback
+from collections import Counter
 from queue import Empty
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.sharding.policy import data_axes
+from repro_torch.sharding.policy import data_axes, row_block
 
 # one NVIDIA H100 SXM5 80GB at a 700 W power limit, for the roofline
 # analysis (a card set below 700 W runs slower under load)
@@ -51,6 +61,11 @@ PEAK_FLOPS_BF16 = 989e12        # dense bf16 on the tensor cores, per card
 HBM_BW = 3.35e12                # HBM3 bytes/s per card
 NVLINK_BW = 450e9               # NVLink 4 bytes/s per direction, per card
 CARD_HBM_BYTES = 80 * 1024 ** 3
+
+# collectives this process has issued, by kind ("all_reduce",
+# "all_gather", "broadcast"): one per call of the backend, counted where
+# it is called; chip_smoke.py resets and reads it around a step
+calls: Counter = Counter()
 
 # the production meshes: one HGX board's 8 cards share an NVLink domain,
 # so the tensor-parallel axis (``model``, an all-reduce per layer) stays
@@ -158,23 +173,19 @@ def _axes(axes) -> Tuple[str, ...]:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
-def shard_of(mesh, axes) -> Tuple[int, int]:
-    """(this rank's index, the number of shards) along the mesh axes
-    ``axes`` (a name or a tuple of names, major first), as
-    ``shard_map`` numbers the blocks of a dim sharded over them."""
-    idx, count = 0, 1
-    for ax in _axes(axes):
-        size = mesh.size(mesh.mesh_dim_names.index(ax))
-        idx = idx * size + mesh.get_local_rank(ax)
-        count *= size
-    return idx, count
+def _trivial(mesh) -> bool:
+    """No mesh, or a mesh of one rank: every collective is a no-op."""
+    return mesh is None or mesh.size() == 1
 
 
 def all_reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """Sum ``x`` in place over the ranks along ``axes`` (the reference's
-    ``psum``), one ``all_reduce`` per axis. A row-strided ``x`` (rows
-    padded past its width, as the federation plan's buffers and K1's
-    outputs are) is reduced with its pad columns, in one piece."""
+    ``psum``), one ``all_reduce`` per axis; a no-op without a mesh or on
+    a 1-rank mesh. A row-strided ``x`` (rows padded past its width, as
+    the federation plan's buffers and K1's outputs are) is reduced with
+    its pad columns, in one piece."""
+    if _trivial(mesh):
+        return x
     whole = x
     if not x.is_contiguous():
         if x.ndim != 2 or x.stride(1) != 1 or x.stride(0) < x.shape[1]:
@@ -183,7 +194,136 @@ def all_reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
         whole = x.as_strided((x.shape[0], x.stride(0)), (x.stride(0), 1))
     for ax in _axes(axes):
         dist.all_reduce(whole, op=dist.ReduceOp.SUM, group=mesh.get_group(ax))
+        calls["all_reduce"] += 1
     return x
+
+
+class _ReduceSum(torch.autograd.Function):
+    """The sum over the ranks, out of place; its backward is again the
+    sum over the ranks: every rank's loss reads the same sum, so each
+    rank's input gets the gradients of all of them."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_reduce_sum(x.contiguous().clone(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (all_reduce_sum(grad.contiguous().clone(), ctx.mesh, ctx.axes),
+                None, None)
+
+
+def reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``all_reduce_sum`` as a differentiable function (a new tensor, the
+    input untouched); ``x`` itself without a mesh or on a 1-rank mesh.
+    The sharded step reduces its server BatchNorm statistics with it."""
+    if _trivial(mesh):
+        return x
+    return _ReduceSum.apply(x, mesh, axes)
+
+
+def _by_dtype(tensors: Sequence[torch.Tensor]) -> dict:
+    """(dtype, device) -> [(position, tensor)], in order."""
+    out: dict = {}
+    for i, t in enumerate(tensors):
+        out.setdefault((t.dtype, t.device), []).append((i, t))
+    return out
+
+
+def _pack(ts) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for _, t in ts])
+
+
+def _unpack_into(flat: torch.Tensor, ts) -> None:
+    off = 0
+    for _, t in ts:
+        n = t.numel()
+        t.copy_(flat[off:off + n].view(t.shape))
+        off += n
+
+
+def all_reduce_flat(tensors: Sequence[torch.Tensor], mesh, axes) -> None:
+    """Sum every tensor in place over the ranks along ``axes``, in one
+    ``all_reduce`` per dtype: the tensors go packed into one flat buffer,
+    which is reduced and copied back. A no-op without a mesh or on a
+    1-rank mesh."""
+    if _trivial(mesh):
+        return
+    for ts in _by_dtype(tensors).values():
+        flat = _pack(ts)
+        all_reduce_sum(flat, mesh, axes)
+        _unpack_into(flat, ts)
+
+
+def all_gather_rows(tensors: Sequence[torch.Tensor], mesh, axes
+                    ) -> List[torch.Tensor]:
+    """Each rank's row block ``[k, ...]`` of every tensor becomes the
+    whole ``[n k, ...]``, the blocks in the order ``row_block`` numbers
+    them (``policy.shard_index``): one ``all_gather`` per dtype and axis,
+    the tensors packed into one flat buffer. The tensors themselves
+    without a mesh or axes, or on a 1-rank mesh."""
+    if _trivial(mesh) or axes is None:
+        return list(tensors)
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    for ts in _by_dtype(tensors).values():
+        flat = _pack(ts)
+        n = 1
+        for ax in reversed(_axes(axes)):       # minor axis first
+            group = mesh.get_group(ax)
+            size = dist.get_world_size(group)
+            buf = flat.new_empty((size,) + tuple(flat.shape))
+            dist.all_gather(list(buf.unbind(0)), flat, group=group)
+            calls["all_gather"] += 1
+            flat, n = buf, n * size
+        flat = flat.reshape(n, -1)
+        off = 0
+        for i, t in ts:
+            m = t.numel()
+            out[i] = flat[:, off:off + m].reshape(
+                (n * t.shape[0],) + tuple(t.shape[1:]))
+            off += m
+    return out
+
+
+Items = List[Tuple[Tuple[str, ...], Any]]
+
+
+def gather_state(items: Items, mesh, axes,
+                 rows: Callable[[Tuple[str, ...]], bool]) -> Items:
+    """A rank's state, as (path, leaf) pairs, made whole: every leaf whose
+    path ``rows`` picks is a row block and is gathered
+    (``all_gather_rows``, one collective per dtype), every other leaf is
+    replicated and kept as it is."""
+    picked = [i for i, (p, _) in enumerate(items) if rows(p)]
+    whole = all_gather_rows([items[i][1] for i in picked], mesh, axes)
+    out = list(items)
+    for i, x in zip(picked, whole):
+        out[i] = (items[i][0], x)
+    return out
+
+
+def keep_rows(items: Items, mesh, axes,
+              rows: Callable[[Tuple[str, ...]], bool]) -> Items:
+    """Inverse of ``gather_state``: this rank's row block
+    (``policy.row_block``) of every leaf ``rows`` picks, as a copy, so
+    that the whole leaf can be freed; the other leaves as they are, and
+    every leaf without a mesh or axes, or on a 1-rank mesh."""
+    out = []
+    for p, x in items:
+        if rows(p) and axes is not None and not _trivial(mesh):
+            lo, hi = row_block(mesh, x.shape[0], axes)
+            x = x[lo:hi].clone()
+        out.append((p, x))
+    return out
+
+
+def barrier(mesh) -> None:
+    """Wait for every rank of the mesh; a no-op without a mesh or on a
+    1-rank mesh."""
+    if not _trivial(mesh):
+        for ax in mesh.mesh_dim_names:
+            dist.barrier(group=mesh.get_group(ax))
 
 
 def broadcast_from_first(tensors: Sequence[torch.Tensor], mesh,
@@ -198,6 +338,7 @@ def broadcast_from_first(tensors: Sequence[torch.Tensor], mesh,
         src = dist.get_global_rank(group, 0)
         for t in tensors:
             dist.broadcast(t, src=src, group=group)
+            calls["broadcast"] += 1
 
 
 def broadcast_flat(tensors: Sequence[torch.Tensor], mesh,
@@ -205,17 +346,10 @@ def broadcast_flat(tensors: Sequence[torch.Tensor], mesh,
     """``broadcast_from_first`` for many tensors in a few collectives:
     the tensors of each dtype go packed into one flat buffer, which is
     broadcast and copied back in place."""
-    by_dtype = {}
-    for t in tensors:
-        by_dtype.setdefault((t.dtype, t.device), []).append(t)
-    for (dtype, device), ts in by_dtype.items():
-        flat = torch.cat([t.reshape(-1) for t in ts])
+    for ts in _by_dtype(tensors).values():
+        flat = _pack(ts)
         broadcast_from_first([flat], mesh, axes)
-        off = 0
-        for t in ts:
-            n = t.numel()
-            t.copy_(flat[off:off + n].view(t.shape))
-            off += n
+        _unpack_into(flat, ts)
 
 
 # ---------------------------------------------------------------------------

@@ -62,7 +62,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import nn
 from repro_torch.models.gan import DISC_LAYER_DEFS, GEN_LAYER_DEFS, Z_DIM
 from repro_torch.sharding.policy import (ShardingPolicy, activation_sharding,
-                                         cohort_axes)
+                                         cohort_axes, shard_index)
 from repro_torch.tree import tree_map
 
 
@@ -152,7 +152,7 @@ class SplitGanEngine:
         apply = self._apply(active)
         dev = self.device
         axes = self.shard_axes(buckets)
-        part, n_part = mesh_mod.shard_of(self.mesh, axes) if axes else (0, 1)
+        part, n_part = shard_index(self.mesh, axes) if axes else (0, 1)
         gathered, inputs = {}, {}
         for g, bkt in zip(active, buckets):
             idxs = per[g]

@@ -38,19 +38,28 @@ checkpoint format and layouts:
 N federation rounds and regroups the population when it finds strictly
 better cuts.
 
-``--fed-devices N`` shards every federation round's client rows over N
-ranks (``core.federation``, ``mesh=``), as the reference's flag shards
-them over N devices; the training step runs on every rank, each holding
-the whole state. The default is every visible GPU on ``cuda`` and 1 on
-the CPU. N > 1 spawns N ranks (``launch.mesh.run_ranks``: NCCL, one GPU
-each; gloo on the CPU) and returns rank 0's summary, or joins the group
-that ``torchrun --nproc-per-node N`` made (``WORLD_SIZE`` = N). N above
-the visible GPUs on ``cuda`` raises. Only rank 0 prints and writes the
-checkpoint:
+``--fed-devices N`` shards the training over N ranks, as the
+reference's flag shards it over N devices. When N divides every profile
+group's size, the step shards by client rows (``core.huscf``,
+``step_sharded``): each rank holds and trains its block of every
+group's clients, and the rounds aggregate each rank's own rows. When a
+group does not divide, every rank holds the whole state and runs the
+whole step, and only the rounds shard the client rows. The launcher
+prints ``step=sharded`` or ``step=replicated``. The default is every
+visible GPU on ``cuda`` and 1 on the CPU. N > 1 spawns N ranks
+(``launch.mesh.run_ranks``: NCCL, one GPU each; gloo on the CPU) and
+returns rank 0's summary, or joins the group that ``torchrun
+--nproc-per-node N`` made (``WORLD_SIZE`` = N). N above the visible GPUs
+on ``cuda`` raises. Only rank 0 prints and writes the checkpoint (of the
+gathered state). 14 clients on the paper's 7 devices make 7 groups of
+2, which 2 ranks divide:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch huscf-gan \
-      --device cpu --fed-devices 2 --clients 4 --base-size 24 --batch 4 \
-      --epochs 3 --federate-every 1
+      --device cpu --fed-devices 2 --clients 14 --base-size 12 --batch 4 \
+      --epochs 2 --federate-every 1
+
+A sharded step runs collectives inside it, which a CUDA graph cannot
+capture through gloo: on the card it needs ``--per-step``.
 
 ``train_lm`` takes Adam with a warm-up cosine schedule (10 warm-up
 steps, ``max(steps, 20)`` in all) and global-norm clipping at 1.0 on
@@ -115,17 +124,17 @@ def _huscf_rank(args) -> dict:
 
 
 def rank_summary(tr) -> dict:
-    """What a spawned rank hands back: losses, rounds and the mesh."""
+    """What a spawned rank hands back: losses, rounds, the mesh and
+    whether the step sharded."""
     return {"history": tr.history,
             "rounds": [d["mode"] for d in tr.fed_log],
             "fed_ranks": 1 if tr.fed_mesh is None else tr.fed_mesh.size(),
+            "step_sharded": tr.step_sharded,
             "groups": len(tr.groups), "ga_latency": tr.ga_latency}
 
 
 def _train_huscf(args, n_ranks: int):
     import torch.distributed as dist
-    from repro_torch.bridge import state_to_numpy
-    from repro_torch.checkpoint import save_checkpoint
     from repro_torch.core.huscf import HuSCFConfig, HuSCFTrainer
     from repro_torch.core.latency import PAPER_DEVICES
     from repro_torch.data.partition import build_scenario
@@ -134,7 +143,8 @@ def _train_huscf(args, n_ranks: int):
     device, fed_mesh, lead = args.device, None, True
     if n_ranks > 1:
         # one mesh over the ranks; each rank trains on its own GPU (or
-        # the CPU) and every federation round shards over the mesh
+        # the CPU), its rows of the step where the groups divide, and
+        # every federation round shards over the mesh
         dev_type = torch.device(args.device).type
         fed_mesh = mesh_mod.make_federation_mesh(n_ranks, dev_type)
         device = mesh_mod.rank_device(dev_type)
@@ -163,6 +173,7 @@ def _train_huscf(args, n_ranks: int):
     say = print if lead else (lambda *a, **k: None)
     say(f"[train] GA latency model: {tr.ga_latency:.2f}s/iter, "
         f"{len(tr.groups)} profile groups, mesh={n_ranks}dev, "
+        f"step={'sharded' if tr.step_sharded else 'replicated'}, "
         f"{'per-step' if args.per_step else 'fused'} epochs, "
         f"{agg} aggregation, {part}{reopt}")
     for ep in range(args.epochs):
@@ -171,8 +182,9 @@ def _train_huscf(args, n_ranks: int):
         say(f"[train] epoch {ep + 1}: loss_d={m['loss_d']:.3f} "
             f"loss_g={m['loss_g']:.3f} ({time.time() - t0:.1f}s)",
             flush=True)
-    if args.ckpt and lead:
-        save_checkpoint(args.ckpt, state_to_numpy(tr.state), step=tr.epoch)
+    if args.ckpt:
+        # a collective on a mesh: every rank gathers, rank 0 writes
+        tr.save_checkpoint(args.ckpt)
         say(f"[train] checkpoint -> {args.ckpt}")
     return tr
 

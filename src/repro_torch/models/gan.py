@@ -18,10 +18,12 @@ Discriminator (image 28x28 + label channel -> logit):
 Every layer is a ``LayerDef(init, apply)``. ``init(n, gen, device,
 dtype=torch.float32)`` draws ``n`` independent copies stacked on a
 leading axis;
-``apply(p, x, train) -> (y, new_p)`` takes params with a leading client
-axis ``K`` and activations ``[K, b, ...]`` (NHWC), so a profile group's
-stacked clients run as one call (the reference's ``vmap``). Server
-layers run with ``K = 1`` (see ``core.segments``).
+``apply(p, x, train, reduce=None) -> (y, new_p)`` takes params with a
+leading client axis ``K`` and activations ``[K, b, ...]`` (NHWC), so a
+profile group's stacked clients run as one call (the reference's
+``vmap``). Server layers run with ``K = 1`` (see ``core.segments``);
+``reduce`` is their BatchNorm statistics' sum over the ranks of a
+client-sharded step (``nn.batchnorm_apply``).
 """
 from __future__ import annotations
 
@@ -62,13 +64,13 @@ def _g0_init(n, gen, device, dtype=torch.float32):
             "bn": nn.batchnorm_init(n, 256, device, dtype)}
 
 
-def _g0_apply(p, x, train):
+def _g0_apply(p, x, train, reduce=None):
     z, y = x                                   # z [K, b, Z], y [K, b]
     e = nn.embedding_apply(p["embed"], y)
     h = torch.cat([z, e.to(z.dtype)], -1)
     h = nn.dense_apply(p["fc"], h)
     h = h.reshape(h.shape[0], h.shape[1], 7, 7, 256)
-    h, bn = nn.batchnorm_apply(p["bn"], h, train=train)
+    h, bn = nn.batchnorm_apply(p["bn"], h, train=train, reduce=reduce)
     return torch.relu(h), {**p, "bn": bn}
 
 
@@ -81,11 +83,11 @@ def _gconvt_init(cin, cout, k):
 
 
 def _gconvt_apply(stride, final=False):
-    def apply(p, x, train):
+    def apply(p, x, train, reduce=None):
         h = nn.convT2d_apply(p["convt"], x, stride=stride)
         if final:
             return torch.tanh(h), p
-        h, bn = nn.batchnorm_apply(p["bn"], h, train=train)
+        h, bn = nn.batchnorm_apply(p["bn"], h, train=train, reduce=reduce)
         return torch.relu(h), {**p, "bn": bn}
     return apply
 
@@ -114,13 +116,13 @@ def _d0_init(n, gen, device, dtype=torch.float32):
             "bn": nn.batchnorm_init(n, 64, device, dtype)}
 
 
-def _d0_apply(p, x, train):
+def _d0_apply(p, x, train, reduce=None):
     img, y = x                                 # img [K, b, 28, 28, 1]
     e = nn.embedding_apply(p["embed"], y)
     e = e.reshape(e.shape[0], e.shape[1], IMG, IMG, 1)
     h = torch.cat([img, e.to(img.dtype)], -1)
     h = nn.conv2d_apply(p["conv"], h, stride=2)
-    h, bn = nn.batchnorm_apply(p["bn"], h, train=train)
+    h, bn = nn.batchnorm_apply(p["bn"], h, train=train, reduce=reduce)
     return nn.leaky_relu(h), {**p, "bn": bn}
 
 
@@ -133,9 +135,9 @@ def _dconv_init(cin, cout, k):
 
 
 def _dconv_apply(stride):
-    def apply(p, x, train):
+    def apply(p, x, train, reduce=None):
         h = nn.conv2d_apply(p["conv"], x, stride=stride)
-        h, bn = nn.batchnorm_apply(p["bn"], h, train=train)
+        h, bn = nn.batchnorm_apply(p["bn"], h, train=train, reduce=reduce)
         return nn.leaky_relu(h), {**p, "bn": bn}
     return apply
 
@@ -144,7 +146,7 @@ def _d4_init(n, gen, device, dtype=torch.float32):
     return {"fc": nn.dense_init(n, 4 * 4 * 256, 1, gen, device, dtype=dtype)}
 
 
-def _d4_apply(p, x, train):
+def _d4_apply(p, x, train, reduce=None):
     h = x.reshape(x.shape[0], x.shape[1], -1)   # NHWC flatten, H-W-C order
     return nn.dense_apply(p["fc"], h)[..., 0], p
 

@@ -32,7 +32,7 @@ own device, so a generator on the card fills a full-size LM there.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -302,28 +302,48 @@ def convT2d_apply(p: Params, x: torch.Tensor, *, stride: int = 1,
 # ---------------------------------------------------------------------------
 
 def batchnorm_apply(p: Params, x: torch.Tensor, *, train: bool,
-                    momentum: float = 0.9, eps: float = 1e-5
+                    momentum: float = 0.9, eps: float = 1e-5,
+                    reduce: Optional[Callable[[torch.Tensor],
+                                              torch.Tensor]] = None
                     ) -> Tuple[torch.Tensor, Params]:
     """Per-copy BatchNorm over every axis but the copy axis and the
     last: returns (y, updated params). The running statistics keep
     ``momentum`` of the old value and take the biased variance, as the
-    reference does (``nn.BatchNorm2d`` does neither)."""
+    reference does (``nn.BatchNorm2d`` does neither).
+
+    ``reduce`` (training only) sums a tensor over the ranks that hold
+    the batch's other rows, differentiably (``launch.mesh.reduce_sum``):
+    the mean is the reduced sum over the reduced count, and the variance
+    the reduced sum of squared deviations from that mean over the same
+    count, two passes as ``x.var`` takes them. The client-sharded step
+    passes it to the server's layers only; a client's statistics are its
+    own rows'."""
     dims = tuple(range(1, x.ndim - 1))
     bshape = (x.shape[0],) + (1,) * len(dims) + (x.shape[-1],)
-    if train:
+    if not train:
+        mean, var = p["mean"], p["var"]
+        return _bn_normalize(p, x, mean, var, bshape, eps), p
+    if reduce is None:
         mean = x.mean(dims)
         var = x.var(dims, correction=0)
-        new_p = dict(p)
-        new_p["mean"] = (momentum * p["mean"]
-                         + (1 - momentum) * mean.detach())
-        new_p["var"] = momentum * p["var"] + (1 - momentum) * var.detach()
     else:
-        mean, var = p["mean"], p["var"]
-        new_p = p
+        count = float(math.prod(x.shape[d] for d in dims))
+        s = reduce(torch.cat([x.sum(dims),
+                              x.new_full((x.shape[0], 1), count)], -1))
+        n = s[:, -1:]
+        mean = s[:, :-1] / n
+        var = reduce((x - mean.reshape(bshape)).square().sum(dims)) / n
+    new_p = dict(p)
+    new_p["mean"] = momentum * p["mean"] + (1 - momentum) * mean.detach()
+    new_p["var"] = momentum * p["var"] + (1 - momentum) * var.detach()
+    return _bn_normalize(p, x, mean, var, bshape, eps), new_p
+
+
+def _bn_normalize(p: Params, x, mean, var, bshape, eps: float
+                  ) -> torch.Tensor:
     inv = torch.rsqrt(var + eps)
-    y = ((x - mean.reshape(bshape)) * inv.reshape(bshape)
-         * p["scale"].reshape(bshape) + p["bias"].reshape(bshape))
-    return y, new_p
+    return ((x - mean.reshape(bshape)) * inv.reshape(bshape)
+            * p["scale"].reshape(bshape) + p["bias"].reshape(bshape))
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:

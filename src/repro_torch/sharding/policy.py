@@ -112,6 +112,32 @@ def group_client_axes(mesh, group_sizes: Sequence[int]):
     return None
 
 
+def shard_index(mesh, axes) -> Tuple[int, int]:
+    """(this rank's block index, the number of blocks) along the mesh
+    axes ``axes`` (a name or a tuple of names, major first), as
+    ``shard_map`` numbers the blocks of a dim sharded over them. Needs a
+    ``DeviceMesh`` on which this rank holds a coordinate."""
+    idx, count = 0, 1
+    sizes = axis_sizes(mesh)
+    for ax in ((axes,) if isinstance(axes, str) else tuple(axes)):
+        idx = idx * sizes[ax] + mesh.get_local_rank(ax)
+        count *= sizes[ax]
+    return idx, count
+
+
+def row_block(mesh, n_rows: int, axes) -> Tuple[int, int]:
+    """[lo, hi) of the rows of a ``[n_rows, ...]`` stack that this rank
+    holds when the stack's leading axis shards over ``axes`` (an entry of
+    ``client_axes`` or ``group_client_axes``, which divides ``n_rows``);
+    all of them for ``axes=None``. The federation rounds' row blocks and
+    the client-sharded training step's rows both come from here."""
+    if axes is None:
+        return 0, int(n_rows)
+    i, n = shard_index(mesh, axes)
+    per = int(n_rows) // n
+    return i * per, (i + 1) * per
+
+
 def cohort_axes(mesh, bucket_sizes: Sequence[int]):
     """Mesh axes to shard bucket-padded serving-cohort rows over, or None.
 
