@@ -187,6 +187,23 @@ Phases (any failure exits non-zero and prints no result):
      (MESH_SERVE_TOL). Each round's wall time and its collectives' ms
      are logged; the card's memory is held to
      ``launch.mesh.CARD_HBM_BYTES``. Prints the ``mesh`` line;
+  4g. the dry runs (``run_dryrun``, after the mesh phase): in processes
+     of their own, side by side (each starts a fake process group),
+     ``python -m repro_torch.launch.dryrun --arch granite-3-2b`` (its 4
+     input shapes on the 256-card production mesh), ``python -m
+     repro_torch.launch.dryrun_paper --lm granite-3-2b`` (the paper's
+     224-client GAN step and the split LM, 1 pod), then ``python -m
+     repro_torch.launch.roofline`` on the first's records; each must exit
+     0. The same dry run on the host mesh (1 rank) of two steps the card
+     runs: granite-3-2b at ``LM_TRAIN`` (phase 4d's timed step, counted
+     by ``FlopCounterMode`` with the dry run's formulas, its peak read
+     from ``max_memory_allocated``) and the slice's HuSCF-GAN step (8
+     clients, batch 16: one eager in-place step of its trainer on a copy
+     of its state): the FLOPs within DRYRUN_FLOP_RTOL of the card's
+     count, the predicted peak bytes within DRYRUN_PEAK_RANGE of the
+     measured, and each step's bound seconds over its measured seconds
+     (its fraction of the roofline) printed on the ``dryrun`` line with
+     the card's name and power limit;
   5. GAN split serving: ``repro_torch.launch.serve_split.main --mode gan``
      at full width on both profile mixes (24 requests each); the images
      are finite, in the tanh range and equal each client's monolithic
@@ -234,7 +251,8 @@ Phases (any failure exits non-zero and prints no result):
      algorithm: training and evaluation seconds, seconds per step,
      epochs, steps and the per-domain metrics; the cuts in
      ``reduced``), the ``lm`` line (the card's name and power limit, then
-     the phase 4d numbers), the ``mesh`` line (phase 4f), one with the
+     the phase 4d numbers), the ``mesh`` line (phase 4f), the
+     ``dryrun`` line (phase 4g), one with the
      kernels (K1 and K2 with their population shapes, launches and the
      re-cut, quality, legacy and mesh runs' launches, K1 at the mesh's
      row blocks and at the sharded population's local rows), then the
@@ -2070,6 +2088,7 @@ def lm_granite_train(train_main, device: str) -> dict:
     profiled."""
     import torch
     from repro_torch.data.tokens import lm_batches
+    from repro_torch.launch.dryrun import local_bytes
     from repro_torch.launch.train import lm_batch
     from repro_torch.models import transformer as T
     from repro_torch.models.nn import tree_size
@@ -2092,12 +2111,20 @@ def lm_granite_train(train_main, device: str) -> dict:
                                           grad_clip=1.0))
     toks, labs = next(lm_batches(cfg.vocab, a["batch"], a["seq"], seed=1))
     batch = lm_batch(cfg, toks, labs, a["steps"], device)
+    # the timed step's own peak (phase 4g holds the dry run's prediction
+    # to it): the bytes it holds at once, its arguments included, above
+    # what else the process holds
     torch.cuda.synchronize()
+    args_bytes = local_bytes((params, opt_state, batch))
+    torch.cuda.reset_peak_memory_stats()
+    other = torch.cuda.memory_allocated() - args_bytes
     t0 = time.perf_counter()
     params, opt_state, m = without_sync(lambda: step(params, opt_state,
                                                      batch))
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
+    step_peak = torch.cuda.max_memory_allocated() - other
+    step_flops = count_flops(lambda: step(params, opt_state, batch))
     prof = device_profile(lambda: step(params, opt_state, batch), top_n=6)
     n_params = tree_size(params)
     del params, opt_state
@@ -2107,6 +2134,7 @@ def lm_granite_train(train_main, device: str) -> dict:
         f"{prof['busy_share']:.3f}, peak {peak / 2**30:.1f} GiB")
     return {"arch": LM_ARCH, "params": n_params, **a, "losses": losses,
             "train_s": train_s, "step_s": step_s, "peak_bytes": peak,
+            "step_peak_bytes": step_peak, "step_flops": step_flops,
             "tokens_per_s": a["batch"] * a["seq"] / step_s,
             "step_profile": prof}
 
@@ -2375,6 +2403,219 @@ def run_lm(train_main, serve_main, smi: str, device: str = "cuda") -> dict:
                               "against their plain versions below)"}
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"LM phase {out['phase_s']:.1f}s")
+    return out
+
+
+# --- the dry runs (phase 4g) ------------------------------------------------
+
+DRYRUN_TIMEOUT = 900
+DRYRUN_FLOP_RTOL = 1e-3         # dry run against the card's count
+DRYRUN_PEAK_RANGE = (0.75, 1.25)  # predicted / measured peak bytes
+
+
+def count_flops(fn) -> float:
+    """FLOPs of one call of ``fn`` on the card, by ``FlopCounterMode``
+    with the dry run's formulas (``launch.dryrun.FLOP_OVERRIDES``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch.dryrun import FLOP_OVERRIDES
+    with FlopCounterMode(display=False,
+                         custom_mapping=FLOP_OVERRIDES()) as fc:
+        fn()
+    return float(fc.get_total_flops())
+
+
+GAN_STEP_REPS = 7               # timed eager GAN steps (their median)
+
+
+def gan_slice_step(tr, device: str = "cuda") -> dict:
+    """Eager in-place training steps of the slice's trainer on a copy of
+    its state (the fused epoch's step, outside a graph): its FLOPs, the
+    median seconds of ``GAN_STEP_REPS`` steps after a warm-up step (the
+    step is host-bound, so nothing else of the smoke runs meanwhile), and
+    its peak bytes, its arguments included, above what else the process
+    holds."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.dryrun import local_bytes
+    st = clone_state(tr.state)
+    batch = tr._sample(torch.Generator(device=device).manual_seed(7))
+    tr._step(st, batch, inplace=True)
+    torch.cuda.synchronize()
+    args_bytes = local_bytes((st, batch))
+    torch.cuda.reset_peak_memory_stats()
+    other = torch.cuda.memory_allocated() - args_bytes
+    times = []
+    for _ in range(GAN_STEP_REPS):
+        t0 = time.perf_counter()
+        tr._step(st, batch, inplace=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - other
+    flops = count_flops(lambda: tr._step(st, batch, inplace=True))
+    del st, batch
+    return {"clients": sum(g.size for g in tr.groups), "batch": tr.cfg.batch,
+            "groups": len(tr.groups), "step_s": float(np.median(times)),
+            "step_s_all": times, "peak_bytes": peak, "flops": flops}
+
+
+def dryrun_host_child(in_path: str, out_path: str) -> None:
+    """The dry runs of the two steps phase 4g measures on the card, on
+    the host mesh (1 rank; a fake group of one in this process of its
+    own): granite-3-2b at ``LM_TRAIN``'s batch and sequence, and the
+    slice's HuSCF-GAN step at its groups and batch."""
+    import pickle
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    torch.set_num_threads(2)
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import dryrun_paper as DP
+    with open(in_path, "rb") as f:
+        inp = pickle.load(f)
+    a, dev = LM_TRAIN, inp["device"]
+    shape = InputShape("smoke_train", a["seq"], a["batch"], "train")
+    mesh = D.host_mesh(dev)
+    out = {"lm": D.run_pair(LM_ARCH, shape, False, device=dev,
+                            mesh=mesh, cfg_override=inp["lm_cfg"]),
+           "gan": DP.run_gan(False, batch=inp["batch"], device=dev,
+                             mesh=mesh, groups=inp["groups"],
+                             ga_latency=inp["ga_latency"])}
+    D.stop_fake_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def _bound_s(rec: dict) -> dict:
+    """The roofline terms of a dry-run record on one H100
+    (``launch.roofline.analyze_record``)."""
+    from repro_torch.launch.roofline import analyze_record
+    a = analyze_record(rec)
+    return {k: a[k] for k in ("compute_s", "memory_s", "collective_s",
+                              "bound_s", "dominant")}
+
+
+def _held(name: str, rec: dict, card: dict) -> dict:
+    """A dry-run record of one step against the card's run of it: the
+    FLOPs within DRYRUN_FLOP_RTOL, the predicted peak bytes within
+    DRYRUN_PEAK_RANGE of the measured, and the step's fraction of its
+    roofline (bound seconds over measured seconds)."""
+    err = abs(rec["cost"]["flops"] / card["flops"] - 1)
+    ratio = rec["memory"]["peak_bytes"] / card["peak_bytes"]
+    b = _bound_s(rec)
+    out = {"dry_flops": rec["cost"]["flops"], "card_flops": card["flops"],
+           "flop_rel_err": err, "dry_peak_bytes": rec["memory"]["peak_bytes"],
+           "dry_argument_bytes": rec["memory"]["argument_bytes"],
+           "card_peak_bytes": card["peak_bytes"], "peak_ratio": ratio,
+           "dry_bytes_accessed": rec["cost"]["bytes_accessed"], **b,
+           "step_s": card["step_s"],
+           "roofline_fraction": b["bound_s"] / card["step_s"],
+           "trace_s": rec["compile_s"]}
+    log(f"dryrun {name}: FLOPs {rec['cost']['flops']:.6e} (card "
+        f"{card['flops']:.6e}, rel {err:.2e}); peak "
+        f"{rec['memory']['peak_bytes'] / 2**30:.2f} GiB predicted, "
+        f"{card['peak_bytes'] / 2**30:.2f} measured (x{ratio:.3f}); bound "
+        f"{b['bound_s']:.4f} s ({b['dominant']}) against {card['step_s']:.4f}"
+        f" s: {out['roofline_fraction']:.3f} of the roofline")
+    if err > DRYRUN_FLOP_RTOL:
+        raise AssertionError(f"dry run {name}: {rec['cost']['flops']} FLOPs"
+                             f" against the card's {card['flops']}")
+    if not DRYRUN_PEAK_RANGE[0] <= ratio <= DRYRUN_PEAK_RANGE[1]:
+        raise AssertionError(f"dry run {name}: predicted peak "
+                             f"{rec['memory']['peak_bytes']} bytes, "
+                             f"measured {card['peak_bytes']} (x{ratio:.3f})")
+    return out
+
+
+def run_dryrun(tr, lm: dict, smi: str, device: str = "cuda",
+               lm_cfg=None) -> dict:
+    """Phase 4g: the dry runs (docstring). The card measures the slice's
+    GAN step first; then the production-mesh runs and the host-mesh twins
+    of the two steps run in processes of their own, side by side, each
+    with a fake process group."""
+    import pickle
+    t_phase = time.perf_counter()
+    gan_card = gan_slice_step(tr, device)
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    paths = {k: os.path.join(build, f"{k}.jsonl")
+             for k in ("dryrun_torch", "dryrun_paper_torch")}
+    for p in paths.values():
+        if os.path.exists(p):
+            os.remove(p)
+    host_in = os.path.join(build, "dryrun_host_in.pkl")
+    host_out = os.path.join(build, "dryrun_host.json")
+    with open(host_in, "wb") as f:
+        pickle.dump({"groups": list(tr.groups), "batch": tr.cfg.batch,
+                     "ga_latency": tr.ga_latency, "device": device,
+                     "lm_cfg": lm_cfg}, f)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT, os.environ.get("PYTHONPATH", "")]))
+    cmds = {
+        "dryrun": [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", LM_ARCH, "--out", paths["dryrun_torch"],
+                   "--device", device],
+        "dryrun_paper": [sys.executable, "-m",
+                         "repro_torch.launch.dryrun_paper", "--lm", LM_ARCH,
+                         "--out", paths["dryrun_paper_torch"],
+                         "--device", device],
+        "host": [sys.executable, "-c",
+                 "import chip_smoke; chip_smoke.dryrun_host_child("
+                 f"{host_in!r}, {host_out!r})"]}
+    procs = {k: subprocess.Popen(c, cwd=ROOT, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+             for k, c in cmds.items()}
+    try:
+        outs = {}
+        for k, p in procs.items():
+            out, err = p.communicate(timeout=DRYRUN_TIMEOUT)
+            outs[k] = out
+            for line in out.strip().splitlines():
+                log(f"{k}: {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"{' '.join(cmds[k])} exited "
+                                     f"{p.returncode}:\n{err[-6000:]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    roof = subprocess.run([sys.executable, "-m", "repro_torch.launch.roofline",
+                           paths["dryrun_torch"]], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    if roof.returncode != 0:
+        raise AssertionError(f"roofline exited {roof.returncode}:\n"
+                             f"{roof.stderr[-4000:]}")
+    log("roofline:\n" + roof.stdout)
+    with open(host_out) as f:
+        host = json.load(f)
+    records = {}
+    for k, p in paths.items():
+        with open(p) as f:
+            records[k] = [json.loads(line) for line in f]
+
+    def brief(r):
+        if "skipped" in r or "error" in r:
+            return r
+        return {k: r[k] for k in ("arch", "shape", "multi_pod", "kind",
+                                  "chips", "compile_s", "memory", "cost",
+                                  "collectives", "collective_calls")
+                if k in r} | {kk: r[kk] for kk in ("variant", "wall_s",
+                                                   "ga_latency_model_s",
+                                                   "rows_per_rank")
+                               if kk in r} | _bound_s(r)
+    t = lm["train"]
+    out = {"card": smi,
+           "production": {k: [brief(r) for r in v]
+                          for k, v in records.items()},
+           "roofline": roof.stdout,
+           "granite": _held(LM_ARCH, host["lm"], {
+               "flops": t["step_flops"], "peak_bytes": t["step_peak_bytes"],
+               "step_s": t["step_s"]}),
+           "huscf_gan": _held("huscf-gan slice", host["gan"], gan_card),
+           "gan_card": gan_card, "reduced": []}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"dry-run phase {out['phase_s']:.1f}s")
     return out
 
 
@@ -3800,6 +4041,7 @@ def main() -> int:
     _free_cuda()
     lm = run_lm(train_main, lm_serve_main, smi)
     mesh = run_mesh(tr.cuts)
+    dryrun = run_dryrun(tr, lm, smi)
     kernels = check_kernels(tr)
     for k in kernels:
         k["launches"] = counts[k["name"]]
@@ -3884,6 +4126,7 @@ def main() -> int:
     print(json.dumps({"quality": quality}), flush=True)
     print(json.dumps({"lm": lm}), flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
+    print(json.dumps({"dryrun": dryrun}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -110,7 +110,8 @@ from repro_torch.models import gan
 from repro_torch.models.gan import (DISC_LAYER_DEFS, DISC_MIDDLE_FEATURES,
                                     GEN_LAYER_DEFS, Z_DIM)
 from repro_torch.optim.optimizers import AdamState, adam
-from repro_torch.sharding.policy import data_axes, row_block, shard_index
+from repro_torch.sharding.policy import (data_axes, maybe_shard, row_block,
+                                         shard_index)
 from repro_torch.tree import tree_from_items, tree_items, tree_leaves, tree_map
 
 _EMA_DECAY = 0.8                     # middle-activation EMA (stage 3 input)
@@ -193,7 +194,8 @@ def build_net_apply_legacy(groups: Sequence[ProfileGroup], net: str,
             new_client[g.name].update(upd)
             k, b = acts.shape[0], acts.shape[1]
             shapes[g.name] = (k, b)
-            bufs[g.name] = acts.reshape((k * b,) + acts.shape[2:])
+            bufs[g.name] = maybe_shard(
+                acts.reshape((k * b,) + acts.shape[2:]), "rows")
         outs: Dict[str, torch.Tensor] = {}
         middles: Dict[str, torch.Tensor] = {}
         for l in span:
@@ -204,7 +206,7 @@ def build_net_apply_legacy(groups: Sequence[ProfileGroup], net: str,
                 defs[l], server_params[str(l)],
                 [bufs[g.name] for g in active], train, concat_groups, reduce)
             for g, part in zip(active, parts):
-                bufs[g.name] = part
+                bufs[g.name] = part = maybe_shard(part, "rows")
                 if capture_middle and l == middle:
                     k, b = shapes[g.name]
                     middles[g.name] = part.reshape(k, b, -1).float().mean(1)
@@ -463,6 +465,104 @@ def make_epoch_fn(groups: Sequence[ProfileGroup], step_core: Callable,
         return losses
 
     return epoch
+
+
+def gan_train_step(st: Dict[str, Any], batch: Dict[str, Dict[str, Any]], *,
+                   step_groups: Sequence[ProfileGroup], total_clients: int,
+                   gen_apply: Callable, disc_apply: Callable,
+                   opt_update: Callable, mesh=None, axes=None,
+                   inplace: bool = False):
+    """One D then G update from ``st`` on ``batch``: returns (the new
+    state, the losses, the middle activations). ``inplace`` writes the
+    new parameters, statistics, moments and steps into ``st``'s own
+    tensors, one leaf at a time, and returns ``st``.
+
+    ``step_groups`` are the groups whose rows this rank runs, with the
+    executors ``gen_apply``/``disc_apply`` built for them. On a sharded
+    step (``axes`` not None: the mesh axes the rows shard over) ``batch``
+    holds this rank's rows, the server's gradients are summed over the
+    ranks in one collective per net (every replica applies the same
+    update), and the losses returned are summed over the ranks. The
+    trainer's step (``HuSCFTrainer._step``) and the dry run's
+    (``launch.dryrun_paper``) are this function."""
+    groups = step_groups
+    sharded = axes is not None
+
+    def mean_client_loss(logits: Dict[str, torch.Tensor],
+                         target: float) -> torch.Tensor:
+        # the mean over all clients of each client's mean BCE; on a
+        # sharded step this rank's clients' share of it (their sum over
+        # the global client count), whose sum over the ranks is the loss
+        tot = 0.0
+        for g in groups:
+            tot = tot + gan.bce_logits(logits[g.name].reshape(-1),
+                                       target) * g.size
+        return tot / total_clients
+
+    def sum_server_grads(grads: Dict[str, Any]) -> None:
+        if sharded:
+            mesh_mod.all_reduce_flat(tree_leaves(grads["server"]), mesh,
+                                     axes)
+
+    g_params, d_params = st["G"], st["D"]
+    gen_in = {g.name: (batch["z"][g.name], batch["fake_y"][g.name])
+              for g in groups}
+
+    # ---------------- discriminator update (G detached)
+    with torch.no_grad():
+        fake, _, _, _ = gen_apply(g_params["client"], g_params["server"],
+                                  gen_in, True)
+
+    def d_loss(d_p):
+        lr_, ncr, nsr, mids = disc_apply(
+            d_p["client"], d_p["server"],
+            {g.name: (batch["real_img"][g.name], batch["real_y"][g.name])
+             for g in groups}, True)
+        lf_, _, _, _ = disc_apply(
+            d_p["client"], d_p["server"],
+            {g.name: (fake[g.name], batch["fake_y"][g.name])
+             for g in groups}, True)
+        loss = mean_client_loss(lr_, 1.0) + mean_client_loss(lf_, 0.0)
+        return loss, ({"client": ncr, "server": nsr}, mids)
+
+    loss_d, (d_bn, mids), grads_d = value_and_grad(d_loss, d_params)
+    sum_server_grads(grads_d)
+    opt_d, d_new = opt_update(st["opt_d"], grads_d, d_params,
+                              inplace=inplace)
+    del grads_d
+    # keep BatchNorm running stats from the real-data pass
+    if inplace:
+        merge_bn_(d_new, d_bn)
+    else:
+        d_new = merge_bn(d_new, d_bn)
+
+    # ---------------- generator update (vs updated D)
+    def g_loss(g_p):
+        fake, ncg, nsg, _ = gen_apply(g_p["client"], g_p["server"],
+                                      gen_in, True)
+        logits, _, _, _ = disc_apply(
+            d_new["client"], d_new["server"],
+            {g.name: (fake[g.name], batch["fake_y"][g.name])
+             for g in groups}, True)
+        return (mean_client_loss(logits, 1.0),
+                {"client": ncg, "server": nsg})
+
+    loss_g, g_bn, grads_g = value_and_grad(g_loss, g_params)
+    sum_server_grads(grads_g)
+    opt_g, g_new = opt_update(st["opt_g"], grads_g, g_params,
+                              inplace=inplace)
+    del grads_g
+    if sharded:
+        both = mesh_mod.all_reduce_sum(torch.stack([loss_d, loss_g]),
+                                       mesh, axes)
+        loss_d, loss_g = both[0], both[1]
+    metrics = {"loss_d": loss_d, "loss_g": loss_g}
+    if inplace:
+        merge_bn_(g_new, g_bn)
+        return st, metrics, mids
+    g_new = merge_bn(g_new, g_bn)
+    return ({"G": g_new, "D": d_new, "opt_g": opt_g, "opt_d": opt_d,
+             "step": st["step"] + 1}, metrics, mids)
 
 
 class HuSCFTrainer:
@@ -764,96 +864,17 @@ class HuSCFTrainer:
             step=torch.zeros((), dtype=torch.int32, device=self.device))
 
     # -- one training step ----------------------------------------------------
-    def _mean_client_loss(self, logits: Dict[str, torch.Tensor],
-                          target: float) -> torch.Tensor:
-        """The mean over all clients of each client's mean BCE; on a
-        sharded step this rank's clients' share of it (their sum over
-        the global client count), whose sum over the ranks is the
-        loss."""
-        total = sum(g.size for g in self.groups)
-        tot = 0.0
-        for g in self._step_groups:
-            tot = tot + gan.bce_logits(logits[g.name].reshape(-1),
-                                       target) * g.size
-        return tot / total
-
-    def _sum_server_grads(self, grads: Dict[str, Any]) -> None:
-        """A sharded step's server gradients, summed in place over the
-        ranks in one collective: every replica applies the same
-        update."""
-        if self.step_sharded:
-            mesh_mod.all_reduce_flat(tree_leaves(grads["server"]),
-                                     self.fed_mesh, self._shard_axes)
-
     def _step(self, st: Dict[str, Any], batch: Dict[str, Dict[str, Any]],
               inplace: bool = False):
-        """One D then G update from ``st`` on ``batch``: returns (the new
-        state, the losses, the middle activations). ``inplace`` writes
-        the new parameters, statistics, moments and steps into ``st``'s
-        own tensors, one leaf at a time, and returns ``st``. On a sharded
-        step ``batch`` holds this rank's rows, and the losses returned
-        are summed over the ranks."""
-        groups = self._step_groups
-        g_params, d_params = st["G"], st["D"]
-        gen_in = {g.name: (batch["z"][g.name], batch["fake_y"][g.name])
-                  for g in groups}
-
-        # ---------------- discriminator update (G detached)
-        with torch.no_grad():
-            fake, _, _, _ = self._gen_apply(g_params["client"],
-                                            g_params["server"], gen_in, True)
-
-        def d_loss(d_p):
-            lr_, ncr, nsr, mids = self._disc_apply(
-                d_p["client"], d_p["server"],
-                {g.name: (batch["real_img"][g.name], batch["real_y"][g.name])
-                 for g in groups}, True)
-            lf_, _, _, _ = self._disc_apply(
-                d_p["client"], d_p["server"],
-                {g.name: (fake[g.name], batch["fake_y"][g.name])
-                 for g in groups}, True)
-            loss = (self._mean_client_loss(lr_, 1.0)
-                    + self._mean_client_loss(lf_, 0.0))
-            return loss, ({"client": ncr, "server": nsr}, mids)
-
-        loss_d, (d_bn, mids), grads_d = value_and_grad(d_loss, d_params)
-        self._sum_server_grads(grads_d)
-        opt_d, d_new = self._opt_update(st["opt_d"], grads_d, d_params,
-                                        inplace=inplace)
-        del grads_d
-        # keep BatchNorm running stats from the real-data pass
-        if inplace:
-            merge_bn_(d_new, d_bn)
-        else:
-            d_new = merge_bn(d_new, d_bn)
-
-        # ---------------- generator update (vs updated D)
-        def g_loss(g_p):
-            fake, ncg, nsg, _ = self._gen_apply(g_p["client"], g_p["server"],
-                                                gen_in, True)
-            logits, _, _, _ = self._disc_apply(
-                d_new["client"], d_new["server"],
-                {g.name: (fake[g.name], batch["fake_y"][g.name])
-                 for g in groups}, True)
-            return (self._mean_client_loss(logits, 1.0),
-                    {"client": ncg, "server": nsg})
-
-        loss_g, g_bn, grads_g = value_and_grad(g_loss, g_params)
-        self._sum_server_grads(grads_g)
-        opt_g, g_new = self._opt_update(st["opt_g"], grads_g, g_params,
-                                        inplace=inplace)
-        del grads_g
-        if self.step_sharded:
-            both = mesh_mod.all_reduce_sum(torch.stack([loss_d, loss_g]),
-                                           self.fed_mesh, self._shard_axes)
-            loss_d, loss_g = both[0], both[1]
-        metrics = {"loss_d": loss_d, "loss_g": loss_g}
-        if inplace:
-            merge_bn_(g_new, g_bn)
-            return st, metrics, mids
-        g_new = merge_bn(g_new, g_bn)
-        return ({"G": g_new, "D": d_new, "opt_g": opt_g, "opt_d": opt_d,
-                 "step": st["step"] + 1}, metrics, mids)
+        """One D then G update from ``st`` on ``batch``
+        (``gan_train_step`` with this trainer's groups, executors,
+        optimizer and mesh layout)."""
+        return gan_train_step(
+            st, batch, step_groups=self._step_groups,
+            total_clients=sum(g.size for g in self.groups),
+            gen_apply=self._gen_apply, disc_apply=self._disc_apply,
+            opt_update=self._opt_update, mesh=self.fed_mesh,
+            axes=self._shard_axes, inplace=inplace)
 
     def _sample(self, gen: torch.Generator):
         """One training batch: the ``batch_source``'s next (this rank's

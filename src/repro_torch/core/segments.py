@@ -38,6 +38,7 @@ from repro_torch.core.latency import PAPER_SERVER, DeviceProfile
 from repro_torch.core.splitting import (ProfileGroup, bucket_size, layer_pair,
                                         server_union_span)
 from repro_torch.models.gan import NET_LAYER_COSTS, NET_LAYER_DEFS
+from repro_torch.sharding.policy import maybe_shard
 from repro_torch.tree import tree_map
 
 
@@ -201,7 +202,8 @@ def make_apply(program: SplitProgram, capture_middle: bool = False,
             new_client[seg.gname].update(upd)
             k, b = acts.shape[0], acts.shape[1]
             shapes[seg.gname] = (k, b)
-            bufs[seg.gname] = acts.reshape((k * b,) + acts.shape[2:])
+            bufs[seg.gname] = maybe_shard(
+                acts.reshape((k * b,) + acts.shape[2:]), "rows")
         outs: Dict[str, torch.Tensor] = {}
         middles: Dict[str, torch.Tensor] = {}
         for step in program.steps:
@@ -211,7 +213,7 @@ def make_apply(program: SplitProgram, capture_middle: bool = False,
                 [bufs[gname] for gname in step.active], train, concat_groups,
                 reduce)
             for gname, part in zip(step.active, parts):
-                bufs[gname] = part
+                bufs[gname] = part = maybe_shard(part, "rows")
                 if capture_middle and l == middle:
                     k, b = shapes[gname]
                     middles[gname] = part.reshape(k, b, -1).float().mean(1)

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +34,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import nn
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import adam
+from repro_torch.sharding.dtensor_ops import whole_dim
+from repro_torch.sharding.policy import maybe_shard
 from repro_torch.tree import tree_map
 
 
@@ -91,15 +93,22 @@ def init_split_lm(cfg: ArchConfig, groups: Sequence[LMProfileGroup],
 
 def split_lm_forward(cfg: ArchConfig, params: Dict[str, Any],
                      groups: Sequence[LMProfileGroup],
-                     tokens: Dict[str, torch.Tensor]
+                     tokens: Dict[str, torch.Tensor], rows=None
                      ) -> Dict[str, torch.Tensor]:
     """tokens: {group: [K_g, b, S]} -> float32 logits {group:
-    [K_g, b, S, V]}."""
+    [K_g, b, S, V]}. ``rows``, a layout of the client stacks over a
+    mesh's ranks (``launch.dryrun_paper.RankRows``: ``local`` takes this
+    rank's clients of a tree of stacks, ``to_mesh`` makes their rows its
+    block of a batch over the whole mesh, ``from_mesh`` is the inverse):
+    this rank's clients' rows and logits."""
     pat = cfg.block_pattern
     n_pat = len(pat)
     S = next(iter(tokens.values())).shape[-1]
     device = next(iter(tokens.values())).device
     positions = torch.arange(S, device=device)
+    clients = params["clients"]
+    if rows is not None:
+        clients, tokens = rows.local(clients), rows.local(tokens)
 
     def blocks(cp, prefix, n, x):
         for i in range(n):
@@ -108,13 +117,17 @@ def split_lm_forward(cfg: ArchConfig, params: Dict[str, Any],
                             positions)[0]
         return x
 
+    def copies(g):
+        return T.unstack(clients[g.name], tokens[g.name].shape[0])
+
     acts = []
     for g in groups:
-        for cp, toks in zip(T.unstack(params["clients"][g.name], g.n_clients),
-                            tokens[g.name].unbind(0)):
+        for cp, toks in zip(copies(g),
+                            whole_dim(tokens[g.name], 0).unbind(0)):
             x = T._embed(cfg, cp, toks, None)
             acts.append(blocks(cp["head"], "h", g.cut_head, x))
     x = torch.cat(acts, 0)
+    x = maybe_shard(rows.to_mesh(x) if rows is not None else x, "resid")
 
     def trunk(x, slice_p):
         for j, kind in enumerate(pat):
@@ -125,40 +138,53 @@ def split_lm_forward(cfg: ArchConfig, params: Dict[str, Any],
     n_super = _first_leaf(params["server"]["blocks"]).shape[0]
     for slice_p in T.unstack(params["server"]["blocks"], n_super):
         x = T._remat(lambda x_, sp=slice_p: trunk(x_, sp), x)
+    if rows is not None:
+        x = whole_dim(rows.from_mesh(x), 0)
 
     out, start = {}, 0
     for g in groups:
-        rows = []
-        for cp in T.unstack(params["clients"][g.name], g.n_clients):
+        logits = []
+        for cp in copies(g):
             b = tokens[g.name].shape[1]
             h = blocks(cp["tail"], "t", g.cut_tail, x[start:start + b])
             start += b
-            h = T._norm_apply(cfg, cp["final_norm"], h)
-            rows.append(nn.embedding_attend(cp["embed"], h))
-        out[g.name] = torch.stack(rows)
+            h = maybe_shard(T._norm_apply(cfg, cp["final_norm"], h),
+                            "resid_inner")
+            logits.append(nn.embedding_attend(cp["embed"], h))
+        out[g.name] = torch.stack(logits)
     return out
 
 
+def split_lm_loss(cfg: ArchConfig, params: Dict[str, Any],
+                  groups: Sequence[LMProfileGroup],
+                  batch: Dict[str, Dict[str, torch.Tensor]], rows=None
+                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """(the clients' mean NLL, {}). ``rows`` as in ``split_lm_forward``;
+    it also sums the loss over the ranks (``sum_over_ranks``)."""
+    logits = split_lm_forward(cfg, params, groups, batch["tokens"], rows)
+    labels = (batch["labels"] if rows is None
+              else rows.local(batch["labels"]))
+    total, count = 0.0, 0
+    for g in groups:
+        logp = torch.log_softmax(logits[g.name].float(), -1)
+        nll = T.token_nll(logp, labels[g.name].long())
+        # this rank's clients (all of them without a mesh)
+        total = total + nll.mean() * logp.shape[0]
+        count += g.n_clients
+    if rows is not None:
+        total = rows.sum_over_ranks(total)
+    return total / count, {}
+
+
 def make_split_train_step(cfg: ArchConfig, groups: Sequence[LMProfileGroup],
-                          lr: float = 1e-4):
+                          lr: float = 1e-4, rows=None):
     """Returns (train_step, opt_init) over the split-population state:
-    Adam with global-norm clipping at 1.0, on the clients' mean NLL."""
+    Adam with global-norm clipping at 1.0, on ``split_lm_loss``."""
     opt_init, opt_update = adam(lr, grad_clip=1.0)
 
-    def loss_fn(params, batch):
-        logits = split_lm_forward(cfg, params, groups, batch["tokens"])
-        total, count = 0.0, 0
-        for g in groups:
-            logp = torch.log_softmax(logits[g.name].float(), -1)
-            labels = batch["labels"][g.name].long()
-            nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-            total = total + nll.mean() * g.n_clients
-            count += g.n_clients
-        return total / count, {}
-
     def train_step(params, opt_state, batch):
-        loss, _, grads = T.value_and_grad(lambda p: loss_fn(p, batch),
-                                          params)
+        loss, _, grads = T.value_and_grad(
+            lambda p: split_lm_loss(cfg, p, groups, batch, rows), params)
         opt_state, params = opt_update(opt_state, grads, params)
         return params, opt_state, {"loss": loss}
 

@@ -21,6 +21,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.sharding import dtensor_ops
 
 NEG_INF = -1e30
 
@@ -78,9 +79,13 @@ def qkv_proj(p: Dict[str, torch.Tensor], x: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Projections in ``x``'s dtype (float32 accumulation), then the
     biases where the weights have them."""
-    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
-    k = torch.einsum("bsd,dnh->bsnh", x, p["wk"])
-    v = torch.einsum("bsd,dnh->bsnh", x, p["wv"])
+    def proj(w):
+        # [d, n, hd] as one [d, n*hd] product (the heads outermost, so a
+        # head-sharded DTensor weight flattens without a redistribution)
+        n, hd = w.shape[-2], w.shape[-1]
+        y = x @ w.reshape(x.shape[-1], n * hd)
+        return y.reshape(*x.shape[:-1], n, hd)
+    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
     if "bq" in p:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -89,7 +94,10 @@ def qkv_proj(p: Dict[str, torch.Tensor], x: torch.Tensor
 
 
 def out_proj(p: Dict[str, torch.Tensor], o: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bsnh,nhd->bsd", o, p["wo"].to(o.dtype))
+    """o [b, s, n, hd] @ wo [n, hd, d], as one [n*hd, d] product."""
+    n, hd, d = p["wo"].shape
+    w = p["wo"].to(o.dtype).reshape(n * hd, d)
+    return o.reshape(*o.shape[:-2], n * hd) @ w
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +113,7 @@ def _chunk_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
     return m
 
 
+@dtensor_ops.local_heads
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       window: Optional[int] = None, q_chunk: int = 512,
                       k_chunk: int = 512, causal: bool = True
@@ -122,7 +131,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     least the reachable range it is one softmax over all of it.
     Masked scores are ``NEG_INF`` and their weights exactly 0, and the
     denominator is clamped at 1e-30, so a row with nothing to attend
-    comes out as zeros."""
+    comes out as zeros. DTensors run per rank
+    (``dtensor_ops.local_heads``)."""
     B, S, H, hd = q.shape
     S_kv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -171,12 +181,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # decode attention (one new token vs a cache)
 # ---------------------------------------------------------------------------
 
+@dtensor_ops.split_cache_decode
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor,
                      cache_len: Union[int, torch.Tensor]) -> torch.Tensor:
     """q [B,1,H,hd]; caches [B,S,KV,hd]; ``cache_len`` an int (every row)
     or an int tensor [B]: the slots before it are valid. Full softmax
-    over the masked cache, in float32."""
+    over the masked cache, in float32. DTensor caches go through
+    ``dtensor_ops.decode_over_shards``."""
     B, _, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV

@@ -46,9 +46,47 @@ Params = Dict[str, torch.Tensor]
 # initializers
 # ---------------------------------------------------------------------------
 
-def _he_normal(shape, fan_in, gen, device):
-    std = math.sqrt(2.0 / max(fan_in, 1))
-    return (torch.randn(shape, generator=gen) * std).to(device)
+def _fan_in_out(shape) -> Tuple[int, int]:
+    """(fan in, fan out) of a weight in the reference's layouts: dense
+    ``[in, out]``, conv kernels HWIO (the receptive field times the
+    channels)."""
+    if len(shape) == 1:
+        return shape[0], shape[0]
+    if len(shape) == 2:
+        return shape[0], shape[1]
+    receptive = int(math.prod(shape[:-2]))
+    return shape[-2] * receptive, shape[-1] * receptive
+
+
+def glorot_uniform(shape, gen: torch.Generator, device,
+                   dtype=torch.float32) -> torch.Tensor:
+    """Uniform in ``[-l, l]``, ``l = sqrt(6 / (fan_in + fan_out))``
+    (``_fan_in_out``), drawn from ``gen`` on its device."""
+    fan_in, fan_out = _fan_in_out(shape)
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    x = torch.rand(tuple(shape), generator=gen, device=gen.device)
+    return (x * (2 * limit) - limit).to(device=device, dtype=dtype)
+
+
+def he_normal(shape, gen: torch.Generator, device, dtype=torch.float32,
+              fan_in: Optional[int] = None) -> torch.Tensor:
+    """Normal with std ``sqrt(2 / fan_in)``, drawn from ``gen`` on its
+    device; ``fan_in`` by default from ``shape`` in the reference's
+    layouts (``_fan_in_out``), given for a kernel in torch's."""
+    if fan_in is None:
+        fan_in, _ = _fan_in_out(shape)
+    return normal_init(tuple(shape), math.sqrt(2.0 / max(fan_in, 1)), gen,
+                       device, dtype)
+
+
+def truncated_normal(shape, gen: torch.Generator, device, std: float = 0.02,
+                     dtype=torch.float32) -> torch.Tensor:
+    """``std`` times a standard normal truncated to ``[-2, 2]`` (the
+    reference's ``jax.random.truncated_normal(key, -2, 2)``), drawn from
+    ``gen`` on its device."""
+    x = torch.empty(tuple(shape), device=gen.device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (x * std).to(device=device, dtype=dtype)
 
 
 def _with_bias(w: torch.Tensor, lead: Tuple[int, ...], out_ch: int,
@@ -120,16 +158,16 @@ def embedding_init(n: int, vocab: int, dim: int, gen, device, *,
 def conv2d_init(n: int, in_ch: int, out_ch: int, kernel: int, gen,
                 device, *, use_bias: bool = True, dtype=torch.float32
                 ) -> Params:
-    w = _he_normal((n, out_ch, in_ch, kernel, kernel),
-                   in_ch * kernel * kernel, gen, "cpu")
+    w = he_normal((n, out_ch, in_ch, kernel, kernel), gen, "cpu",
+                  fan_in=in_ch * kernel * kernel)
     return _with_bias(w, (n,), out_ch, use_bias, device, dtype)
 
 
 def convT2d_init(n: int, in_ch: int, out_ch: int, kernel: int, gen,
                  device, *, use_bias: bool = True, dtype=torch.float32
                  ) -> Params:
-    w = _he_normal((n, in_ch, out_ch, kernel, kernel),
-                   in_ch * kernel * kernel, gen, "cpu")
+    w = he_normal((n, in_ch, out_ch, kernel, kernel), gen, "cpu",
+                  fan_in=in_ch * kernel * kernel)
     return _with_bias(w, (n,), out_ch, use_bias, device, dtype)
 
 

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import nn
+from repro_torch.sharding.dtensor_ops import pad
 
 RG_LRU_C = 8.0
 
@@ -77,8 +78,8 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     S = a.shape[1]
     off = 1
     while off < S:
-        a_prev = F.pad(a[:, :-off], (0, 0, off, 0), value=1.0)
-        b_prev = F.pad(b[:, :-off], (0, 0, off, 0), value=0.0)
+        a_prev = pad(a[:, :-off], (0, 0, off, 0), value=1.0)
+        b_prev = pad(b[:, :-off], (0, 0, off, 0), value=0.0)
         b = b_prev * a + b
         a = a_prev * a
         off *= 2

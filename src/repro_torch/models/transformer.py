@@ -48,6 +48,9 @@ from repro_torch.models.attention import (apply_rope, attn_init,
                                           chunked_attention, decode_attention,
                                           out_proj, qkv_proj)
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.sharding.dtensor_ops import (embedding, fsdp_gather, pad,
+                                              whole_dim, write_slot)
+from repro_torch.sharding.policy import maybe_shard
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
@@ -151,20 +154,30 @@ def _window_for(cfg: ArchConfig, kind: str,
 def _ffn(cfg: ArchConfig, p: Params, x: torch.Tensor
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's FFN residual: (new x, MoE aux loss or None)."""
-    h2 = _norm_apply(cfg, p["norm2"], x)
+    h2 = maybe_shard(_norm_apply(cfg, p["norm2"], x), "resid_inner")
     if cfg.n_experts:
         o, moe_aux = moe_apply(p["moe"], h2, top_k=cfg.moe_top_k,
                                capacity_factor=cfg.capacity_factor,
                                mlp_variant=cfg.mlp_variant)
-        return x + o, moe_aux["load_balance"] + 1e-3 * moe_aux["router_z"]
-    return x + mlp_apply(cfg, p["mlp"], h2), None
+        return (_residual(x, o),
+                moe_aux["load_balance"] + 1e-3 * moe_aux["router_z"])
+    return _residual(x, mlp_apply(cfg, p["mlp"], h2)), None
+
+
+def _residual(x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """``x + o``, a sublayer's output laid out as the residual stream
+    (``resid``) before it joins it, so that the gradient reaching the
+    sublayer comes back in the sublayer's own layout (sequence whole),
+    as the reference's partitioner lays out a sequence-parallel block."""
+    return x + maybe_shard(o, "resid")
 
 
 def _cross(cfg: ArchConfig, p: Params, x: torch.Tensor, k: torch.Tensor,
            v: torch.Tensor) -> torch.Tensor:
-    hx = _norm_apply(cfg, p["norm_x"], x)
+    hx = maybe_shard(_norm_apply(cfg, p["norm_x"], x), "resid_inner")
     q, _, _ = qkv_proj(p["xattn"], hx)
-    return x + out_proj(p["xattn"], chunked_attention(q, k, v, causal=False))
+    return _residual(x, out_proj(p["xattn"],
+                                 chunked_attention(q, k, v, causal=False)))
 
 
 def block_seq(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
@@ -174,7 +187,7 @@ def block_seq(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training/prefill forward. Returns (x, moe_aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = _norm_apply(cfg, p["norm1"], x)
+    h = maybe_shard(_norm_apply(cfg, p["norm1"], x), "resid_inner")
     if kind in ("attn", "local_attn"):
         q, k, v = qkv_proj(p["attn"], h)
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -182,13 +195,13 @@ def block_seq(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
         o = chunked_attention(q, k, v,
                               window=_window_for(cfg, kind, force_window),
                               causal=causal)
-        x = x + out_proj(p["attn"], o)
+        x = _residual(x, out_proj(p["attn"], o))
     elif kind == "rglru":
-        x = x + rec.rglru_seq(p["rglru"], h)[0]
+        x = _residual(x, rec.rglru_seq(p["rglru"], h)[0])
     elif kind == "mlstm":
-        x = x + rec.mlstm_seq(p["mlstm"], h)[0]
+        x = _residual(x, rec.mlstm_seq(p["mlstm"], h)[0])
     elif kind == "slstm":
-        x = x + rec.slstm_seq(p["slstm"], h)[0]
+        x = _residual(x, rec.slstm_seq(p["slstm"], h)[0])
     if enc_out is not None and "xattn" in p:
         _, k, v = qkv_proj(p["xattn"], enc_out)
         x = _cross(cfg, p, x, k, v)
@@ -196,7 +209,7 @@ def block_seq(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
         x, a = _ffn(cfg, p, x)
         if a is not None:
             aux = aux + a
-    return x, aux
+    return maybe_shard(x, "resid"), aux
 
 
 # --- cache handling --------------------------------------------------------
@@ -242,18 +255,17 @@ def block_prefill(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
                   ) -> Tuple[torch.Tensor, Params]:
     """Forward + the block's cache entry."""
     B, S = x.shape[0], x.shape[1]
-    h = _norm_apply(cfg, p["norm1"], x)
+    # laid out as the training forward lays its blocks out
+    h = maybe_shard(_norm_apply(cfg, p["norm1"], x), "resid_inner")
     if kind in ("attn", "local_attn"):
         q, k, v = qkv_proj(p["attn"], h)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         o = chunked_attention(q, k, v,
                               window=_window_for(cfg, kind, force_window))
-        x = x + out_proj(p["attn"], o)
+        x = _residual(x, out_proj(p["attn"], o))
         s_cache = _attn_cache_len(cfg, kind, ctx_len, margin, force_window)
         keep = min(S, s_cache)
-        entry = init_cache_entry(cfg, kind, B, ctx_len, margin=margin,
-                                 force_window=force_window, device=x.device)
         k_keep = k[:, S - keep:].to(cfg.dtype)
         v_keep = v[:, S - keep:].to(cfg.dtype)
         if keep == s_cache and S % s_cache != 0:
@@ -262,18 +274,20 @@ def block_prefill(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
             shift = (S - keep) % s_cache
             k_keep = torch.roll(k_keep, shift, dims=1)
             v_keep = torch.roll(v_keep, shift, dims=1)
-        entry["k"][:, :keep] = k_keep
-        entry["v"][:, :keep] = v_keep
+        # the kept keys and a zero tail (built from them, not written into
+        # a zero buffer, so they keep the keys' layout across ranks)
+        tail = (0, 0, 0, 0, 0, s_cache - keep)
+        entry = {"k": pad(k_keep, tail), "v": pad(v_keep, tail)}
     elif kind == "rglru":
         o, hstate = rec.rglru_seq(p["rglru"], h)
-        x = x + o
+        x = _residual(x, o)
         entry = {"h": hstate}
     elif kind == "mlstm":
         o, entry = rec.mlstm_seq(p["mlstm"], h)
-        x = x + o
+        x = _residual(x, o)
     elif kind == "slstm":
         o, entry = rec.slstm_seq(p["slstm"], h)
-        x = x + o
+        x = _residual(x, o)
     if enc_out is not None and "xattn" in p:
         _, kx, vx = qkv_proj(p["xattn"], enc_out)
         x = _cross(cfg, p, x, kx, vx)
@@ -281,7 +295,9 @@ def block_prefill(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
         entry["xv"] = vx.to(cfg.dtype)
     if cfg.d_ff > 0:
         x = _ffn(cfg, p, x)[0]
-    return x, entry
+    entry = {k: maybe_shard(v, "cache") if v.ndim == 4 else v
+             for k, v in entry.items()}
+    return maybe_shard(x, "resid"), entry
 
 
 def block_decode(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
@@ -298,8 +314,8 @@ def block_decode(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
         k = apply_rope(k, pos, cfg.rope_theta)
         s_max = entry["k"].shape[1]
         idx = length % s_max
-        entry["k"][:, idx] = k[:, 0].to(entry["k"].dtype)
-        entry["v"][:, idx] = v[:, 0].to(entry["v"].dtype)
+        write_slot(entry["k"], idx, k[:, 0])
+        write_slot(entry["v"], idx, v[:, 0])
         o = decode_attention(q, entry["k"], entry["v"],
                              min(length + 1, s_max))
         x = x + out_proj(p["attn"], o)
@@ -339,7 +355,7 @@ def _pattern_split(cfg: ArchConfig) -> Tuple[int, Tuple[str, ...]]:
 def unstack(tree: Params, n: int) -> List[Params]:
     """The ``n`` slices of a tree stacked on its leading axis, as views
     (one ``unbind`` per leaf)."""
-    parts = tree_map(lambda x: x.unbind(0), tree)
+    parts = tree_map(lambda x: whole_dim(x, 0).unbind(0), tree)
     return [tree_map(lambda u, i=i: u[i], parts) for i in range(n)]
 
 
@@ -380,20 +396,24 @@ def _embed_scale(cfg: ArchConfig) -> float:
 
 def _embed(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
            prefix_embeds: Optional[torch.Tensor]) -> torch.Tensor:
-    x = params["embed"]["table"][tokens.long()].to(cfg.dtype)
-    x = x * _embed_scale(cfg)
+    x = embedding(tokens.long(), fsdp_gather(params["embed"])["table"])
+    x = x.to(cfg.dtype) * _embed_scale(cfg)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(cfg.dtype), x], dim=1)
-    return x
+    return maybe_shard(x, "resid")
 
 
 def _logits(cfg: ArchConfig, params: Params, x: torch.Tensor
             ) -> torch.Tensor:
     """Final norm and the vocab head; float32 logits."""
-    x = _norm_apply(cfg, params["final_norm"], x)
+    params = fsdp_gather({k: params[k] for k in ("final_norm", "embed",
+                                                  "lm_head") if k in params})
+    x = maybe_shard(_norm_apply(cfg, params["final_norm"], x), "resid_inner")
     if cfg.tie_embeddings:
-        return nn.embedding_attend(params["embed"], x)
-    return nn.mm_f32(x, params["lm_head"]["w"])
+        logits = nn.embedding_attend(params["embed"], x)
+    else:
+        logits = nn.mm_f32(x, params["lm_head"]["w"])
+    return maybe_shard(logits, "logits")
 
 
 def _remat(fn, x: torch.Tensor):
@@ -411,9 +431,11 @@ def _encoder(cfg: ArchConfig, params: Params,
     x = frames.to(cfg.dtype)
     pos = torch.arange(x.shape[1], device=x.device)
     for p in unstack(params["enc_blocks"], cfg.n_enc_layers):
-        x = _remat(lambda x_, p=p: block_seq(cfg, "attn", p, x_, pos,
-                                             causal=False)[0], x)
-    return _norm_apply(cfg, params["enc_norm"], x)
+        x = _remat(lambda x_, p=p: block_seq(cfg, "attn", fsdp_gather(p), x_,
+                                             pos, causal=False)[0], x)
+    # the decoder's cross-attention projects every frame
+    return maybe_shard(_norm_apply(cfg, fsdp_gather(params["enc_norm"]), x),
+                       "resid_inner")
 
 
 def forward_train(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
@@ -430,6 +452,9 @@ def forward_train(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     n_super, rest = _pattern_split(cfg)
 
     def superblock(x, slice_p):
+        # gathered inside the recomputed region: one super-block's
+        # weights whole at a time, gathered again in the backward pass
+        slice_p = fsdp_gather(slice_p)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, kind in enumerate(pattern):
             x, a = block_seq(cfg, kind, slice_p[f"p{j}_{kind}"], x,
@@ -443,11 +468,22 @@ def forward_train(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
         x, a = _remat(lambda x_, sp=slice_p: superblock(x_, sp), x)
         aux = aux + a
     for i, kind in enumerate(rest):
-        x, a = block_seq(cfg, kind, params["rest"][f"r{i}_{kind}"], x,
+        x, a = block_seq(cfg, kind,
+                         fsdp_gather(params["rest"][f"r{i}_{kind}"]), x,
                          positions, enc_out=enc_out,
                          force_window=force_window)
         aux = aux + a
     return _logits(cfg, params, x), aux
+
+
+def token_nll(logp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``-logp`` at each label: ``[..., V]``, ``[...]`` -> ``[...]``.
+    ``nll_loss`` picks the entries a gather would (the reference's
+    ``take_along_axis``), bit for bit; DTensor has a batch-sharded rule
+    for it, where a gather's backward builds a zero tensor of the global
+    shape on every rank."""
+    return F.nll_loss(logp.reshape(-1, logp.shape[-1]), labels.reshape(-1),
+                      reduction="none").view(labels.shape)
 
 
 def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
@@ -462,7 +498,7 @@ def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     labels = batch["labels"].long()
     logits_txt = logits[:, -labels.shape[1]:]
     logp = torch.log_softmax(logits_txt.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    nll = token_nll(logp, labels)
     mask = batch.get("loss_mask")
     if mask is None:
         loss = nll.mean()
@@ -542,6 +578,7 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     entries: Dict[str, List[Params]] = {
         f"p{j}_{kind}": [] for j, kind in enumerate(cfg.block_pattern)}
     for slice_p in unstack(params["blocks"], n_super):
+        slice_p = fsdp_gather(slice_p)
         for j, kind in enumerate(cfg.block_pattern):
             name = f"p{j}_{kind}"
             x, e = block_prefill(cfg, kind, slice_p[name], x, positions, S,
@@ -557,7 +594,8 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
                              device=x.device)["scanned"]
     rest_cache = {}
     for i, kind in enumerate(rest):
-        x, e = block_prefill(cfg, kind, params["rest"][f"r{i}_{kind}"], x,
+        x, e = block_prefill(cfg, kind,
+                             fsdp_gather(params["rest"][f"r{i}_{kind}"]), x,
                              positions, S, enc_out=enc_out, margin=margin,
                              force_window=force_window)
         rest_cache[f"r{i}_{kind}"] = e
@@ -574,19 +612,20 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
     one token: its tensors updated in place, ``length + 1``)."""
     if token.ndim == 1:
         token = token[:, None]
-    x = params["embed"]["table"][token.long()].to(cfg.dtype)
-    x = x * _embed_scale(cfg)
+    x = embedding(token.long(), fsdp_gather(params["embed"])["table"])
+    x = x.to(cfg.dtype) * _embed_scale(cfg)
     length = cache["length"]
     n_super, rest = _pattern_split(cfg)
     slices_c = unstack(cache["scanned"], n_super)
     for slice_p, slice_c in zip(unstack(params["blocks"], n_super), slices_c):
+        slice_p = fsdp_gather(slice_p)
         for j, kind in enumerate(cfg.block_pattern):
             name = f"p{j}_{kind}"
             x = block_decode(cfg, kind, slice_p[name], x, slice_c[name],
                              length, force_window=force_window)
     for i, kind in enumerate(rest):
         name = f"r{i}_{kind}"
-        x = block_decode(cfg, kind, params["rest"][name], x,
+        x = block_decode(cfg, kind, fsdp_gather(params["rest"][name]), x,
                          cache["rest"][name], length,
                          force_window=force_window)
     logits = _logits(cfg, params, x)

@@ -370,14 +370,20 @@ class activation_sharding:
         return False
 
 
+def active_mesh():
+    """The innermost ``activation_sharding``'s (mesh, policy), or
+    (None, None) outside every one."""
+    if not _MESH_STACK:
+        return None, None
+    return _MESH_STACK[-1]
+
+
 def maybe_shard(x, kind: str):
     """Lay ``x`` out as ``act_spec(kind)`` says under the innermost
     ``activation_sharding``: a DTensor is redistributed to the spec's
     placements; a plain tensor (each rank holding its own) is returned
     as it is, as is anything outside a context or under mesh None."""
-    if not _MESH_STACK:
-        return x
-    mesh, policy = _MESH_STACK[-1]
+    mesh, policy = active_mesh()
     if mesh is None:
         return x
     from torch.distributed.tensor import DTensor
@@ -387,3 +393,4 @@ def maybe_shard(x, kind: str):
     spec = sanitize(mesh, x.shape,
                     tuple(spec) + (None,) * (x.ndim - len(spec)))
     return x.redistribute(x.device_mesh, to_placements(x.device_mesh, spec))
+

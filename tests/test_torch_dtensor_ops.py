@@ -1,0 +1,356 @@
+"""The port's DTensor paths on real values: ``sharding.dtensor_ops`` and
+the model run on DTensors laid out as the dry runs lay them out, against
+the plain path on the same values.
+
+One module-scoped spawn of 4 gloo ranks on the CPU
+(``launch.mesh.run_ranks``) on a (data 2, model 2) mesh. Every rank
+draws the same parameters and inputs from a seed, runs the plain path
+on whole tensors and the DTensor path on tensors distributed with the
+dry run's placements (``tree_param_specs``, ``_batch_shardings``,
+``_cache_shardings``, ``dryrun_paper.split_lm_specs``) under
+``activation_sharding`` and ``implicit_replication``, as
+``launch.dryrun`` runs its traced calls, and returns the largest
+difference of the gathered (``full_tensor``) results:
+
+* each op of ``dtensor_ops`` alone, its value and its input's gradient,
+  and the placement that shows its own branch ran (a vocabulary-parallel
+  lookup's partial sum, rank-local attention's layout kept);
+* a tiny granite-3-2b (dense GQA, tied embeddings): the train loss and
+  every parameter's gradient, one Adam step, prefill's logits and cache,
+  two decode steps over a cache split along its slots (its logits and
+  written cache);
+* the split LM's loss and gradients with ``dryrun_paper.RankRows``.
+
+Tolerance: 2e-6 of the largest magnitude of the plain result, for
+values and gradients in float32 (the ranks sum partial products in
+another order; the largest seen is the split LM's gradients, 8.0e-7);
+an Adam step: its bound, 2 lr (a first step moves a parameter by about
+lr whatever its gradient's size, so a gradient that changes sign in its
+last bits moves it by 2 lr).
+"""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
+from repro_torch.launch import mesh as tmesh  # noqa: E402
+
+REL_TOL = 2e-6
+LR = 1e-4
+ADAM_TOL = 2 * LR
+TINY = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, head_dim=8,
+            d_ff=64, vocab=64, param_dtype="float32")
+SPLIT_LAYERS = 6
+B, S = 4, 8
+
+
+# ---------------------------------------------------------------------------
+# the ranks
+# ---------------------------------------------------------------------------
+
+def _dist(mesh, tree, specs):
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.sharding.policy import sanitize, to_placements
+    if isinstance(tree, dict):
+        return {k: _dist(mesh, v, specs[k]) for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    spec = sanitize(mesh, tree.shape,
+                    tuple(specs) + (None,) * (tree.ndim - len(specs)))
+    return distribute_tensor(tree, mesh, to_placements(mesh, spec))
+
+
+def _whole(x):
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _rel(got, want) -> float:
+    """Largest |got - want| over the leaves of two trees, over the
+    largest |want|; ints and other leaves must be equal."""
+    got, want = dict(_leaves(got)), dict(_leaves(want))
+    assert got.keys() == want.keys(), (got.keys(), want.keys())
+    err, scale = 0.0, 0.0
+    for k, w in want.items():
+        g = _whole(got[k])
+        if not isinstance(w, torch.Tensor):
+            assert g == w, (k, g, w)
+            continue
+        assert g.shape == w.shape and g.dtype == w.dtype, k
+        err = max(err, (g.double() - w.double()).abs().max().item())
+        scale = max(scale, w.double().abs().max().item())
+    return err / max(scale, 1e-30)
+
+
+def _abs(got, want) -> float:
+    got, want = dict(_leaves(got)), dict(_leaves(want))
+    return max((_whole(got[k]).double() - w.double()).abs().max().item()
+               for k, w in want.items() if isinstance(w, torch.Tensor))
+
+
+def _clone(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
+                    else x, tree)
+
+
+def _ops(mesh, out):
+    """Each op of ``dtensor_ops`` alone."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Partial, Replicate, Shard, \
+        distribute_tensor
+    from repro_torch.models import attention as A
+    from repro_torch.sharding import dtensor_ops as dt
+    g = torch.Generator().manual_seed(1)
+    rows_heads = [Shard(0), Shard(2)]
+
+    # vocabulary-parallel lookup: value, placement, the table's gradient
+    table = torch.randn(64, 16, generator=g)
+    ids = torch.randint(0, 64, (B, S), generator=g)
+    w = torch.randn(B, S, 16, generator=g)
+    t0 = table.clone().requires_grad_(True)
+    (F.embedding(ids, t0) * w).sum().backward()
+    dtab = distribute_tensor(table, mesh, [Replicate(), Shard(0)])
+    dtab.requires_grad_(True)
+    dids = distribute_tensor(ids, mesh, [Shard(0), Replicate()])
+    y = dt.embedding(dids, dtab)
+    out["embedding/partial"] = float(y.placements[1] == Partial())
+    (y.full_tensor() * w).sum().backward()
+    out["embedding/value"] = _rel(y, F.embedding(ids, table))
+    out["embedding/grad"] = _rel(dtab.grad, t0.grad)
+
+    # pad along an unsplit dim, on the local shards
+    x = torch.randn(B, S, 8, generator=g)
+    dx = distribute_tensor(x, mesh, [Shard(0), Shard(2)])
+    y = dt.pad(dx, (0, 0, 3, 0), value=1.0)
+    out["pad/layout_kept"] = float(tuple(y.placements) == (Shard(0),
+                                                           Shard(2)))
+    out["pad/value"] = _rel(y, F.pad(x, (0, 0, 3, 0), value=1.0))
+
+    # a one-slot write into a cache split along its slots, by its owner
+    for idx in (2, 13):
+        cache = torch.randn(B, 24, 2, 8, generator=g)
+        new = torch.randn(B, 2, 8, generator=g)
+        dcache = distribute_tensor(cache, mesh, [Shard(0), Shard(1)])
+        dnew = distribute_tensor(new, mesh, [Shard(0), Shard(1)])
+        dt.write_slot(dcache, idx, dnew)
+        cache[:, idx] = new
+        out[f"write_slot/{idx}"] = _rel(dcache, cache)
+
+    # decode over a cache split along its slots (12 per rank of the model
+    # axis): valid lengths that mask the second rank's whole shard, part
+    # of it, and none of it
+    q = torch.randn(B, 1, 4, 8, generator=g)
+    k = torch.randn(B, 24, 2, 8, generator=g)
+    v = torch.randn(B, 24, 2, 8, generator=g)
+    for n in (5, 13, 24):
+        want = A.decode_attention(q, k, v, n)
+        got = A.decode_attention(
+            distribute_tensor(q, mesh, rows_heads),
+            distribute_tensor(k, mesh, [Shard(0), Shard(1)]),
+            distribute_tensor(v, mesh, [Shard(0), Shard(1)]), n)
+        out[f"decode_over_shards/{n}"] = _rel(got, want)
+
+    # attention per rank over batch rows and heads, and its gradients
+    q = torch.randn(B, S, 4, 8, generator=g)
+    k = torch.randn(B, S, 2, 8, generator=g)
+    v = torch.randn(B, S, 2, 8, generator=g)
+    w = torch.randn(B, S, 4, 8, generator=g)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    (A.chunked_attention(*plain, q_chunk=4, k_chunk=4) * w).sum().backward()
+    dist_in = [distribute_tensor(t, mesh, rows_heads).requires_grad_(True)
+               for t in (q, k, v)]
+    y = A.chunked_attention(*dist_in, q_chunk=4, k_chunk=4)
+    out["local_heads/layout_kept"] = float(tuple(y.placements)
+                                           == tuple(rows_heads))
+    (y.full_tensor() * w).sum().backward()
+    out["local_heads/value"] = _rel(
+        y, A.chunked_attention(q, k, v, q_chunk=4, k_chunk=4))
+    out["local_heads/grad"] = _rel([t.grad for t in dist_in],
+                                   [t.grad for t in plain])
+
+
+def _lm(mesh, out):
+    """The tiny LM's train step, prefill and decode."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import adam
+    from repro_torch.sharding import dtensor_ops as dt
+    from repro_torch.sharding.policy import (ShardingPolicy,
+                                             activation_sharding,
+                                             tree_param_specs)
+    cfg = dataclasses.replace(get_config("granite-3-2b"), **TINY)
+    policy = ShardingPolicy()
+    g = torch.Generator().manual_seed(0)
+    params = T.init_lm(cfg, g, device="cpu")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g),
+             "labels": torch.randint(0, cfg.vocab, (B, S), generator=g)}
+    dparams = _dist(mesh, params, tree_param_specs(mesh, policy, params))
+    dbatch = _dist(mesh, batch, D._batch_shardings(mesh, policy, batch))
+
+    # count the rank-local branches the model takes
+    taken = {"local_heads": 0, "decode_over_shards": 0}
+    rank_local, over_shards = dt._rank_local, dt.decode_over_shards
+
+    def counted_local(*a):
+        r = rank_local(*a)
+        taken["local_heads"] += r is not None
+        return r
+
+    def counted_decode(*a):
+        taken["decode_over_shards"] += 1
+        return over_shards(*a)
+    dt._rank_local, dt.decode_over_shards = counted_local, counted_decode
+
+    def on_mesh(fn):
+        with activation_sharding(mesh, policy), implicit_replication():
+            return fn()
+
+    try:
+        loss0, _, g0 = T.value_and_grad(
+            lambda p: T.lm_loss(cfg, p, batch), params)
+        loss1, _, g1 = on_mesh(lambda: T.value_and_grad(
+            lambda p: T.lm_loss(cfg, p, dbatch), dparams))
+        out["train/loss"] = _rel(loss1, loss0)
+        out["train/grads"] = _rel(g1, g0)
+
+        step, opt_init = T.make_train_step(cfg, adam(LR, grad_clip=1.0))
+        p0, _, m0 = step(params, opt_init(params), batch)
+        p1, _, m1 = on_mesh(lambda: step(dparams, opt_init(dparams),
+                                         dbatch))
+        out["adam_step/loss"] = _rel(m1["loss"], m0["loss"])
+        out["adam_step/params_abs"] = _abs(p1, p0)
+
+        logits0, cache0 = T.prefill(cfg, params, batch["tokens"])
+        logits1, cache1 = on_mesh(lambda: T.prefill(cfg, dparams,
+                                                    dbatch["tokens"]))
+        out["prefill/logits"] = _rel(logits1, logits0)
+        out["prefill/cache"] = _rel(cache1, cache0)
+
+        # decode from the plain prefill's cache, laid out as the dry run
+        # lays a decode cache out (batch over data, slots over model)
+        dcache = _dist(mesh, _clone(cache0),
+                       D._cache_shardings(mesh, policy, cache0))
+        for i in range(2):
+            token = torch.randint(0, cfg.vocab, (B,), generator=g)
+            dtoken = distribute_tensor(
+                token, mesh, D.to_placements(mesh, D.sanitize(
+                    mesh, (B,), (D._dpa(mesh),))))
+            logits0, cache0 = T.decode_step(cfg, params, token, cache0)
+            logits1, dcache = on_mesh(lambda: T.decode_step(
+                cfg, dparams, dtoken, dcache))
+            out[f"decode{i}/logits"] = _rel(logits1, logits0)
+            out[f"decode{i}/cache"] = _rel(dcache, cache0)
+    finally:
+        dt._rank_local, dt.decode_over_shards = rank_local, over_shards
+    out["taken/local_heads"] = float(taken["local_heads"])
+    out["taken/decode_over_shards"] = float(taken["decode_over_shards"])
+
+
+def _split_lm(mesh, out):
+    """The split LM's loss and gradients, each rank on its own clients."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.core import split_transformer as ST
+    from repro_torch.launch import dryrun_paper as DP
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.policy import (ShardingPolicy,
+                                             activation_sharding, sanitize)
+    cfg = dataclasses.replace(get_config("granite-3-2b"),
+                              **dict(TINY, n_layers=SPLIT_LAYERS))
+    policy = ShardingPolicy()
+    groups = ST.default_groups(cfg)
+    g = torch.Generator().manual_seed(2)
+    params = ST.init_split_lm(cfg, groups, g, device="cpu")
+    tok = {gr.name: torch.randint(0, cfg.vocab, (gr.n_clients, 2, S),
+                                  generator=g) for gr in groups}
+    lab = {gr.name: torch.randint(0, cfg.vocab, (gr.n_clients, 2, S),
+                                  generator=g) for gr in groups}
+    batch = {"tokens": tok, "labels": lab}
+    dparams = _dist(mesh, params, DP.split_lm_specs(mesh, policy, params))
+    bspec = {gr.name: sanitize(mesh, tok[gr.name].shape,
+                               (DP._dpa(mesh), None, None))
+             for gr in groups}
+    dbatch = {"tokens": _dist(mesh, tok, bspec),
+              "labels": _dist(mesh, lab, bspec)}
+    rows = DP.RankRows.of(dparams["clients"])
+    out["split_lm/rank_rows"] = float(rows is not None)
+    loss0, _, g0 = T.value_and_grad(
+        lambda p: ST.split_lm_loss(cfg, p, groups, batch), params)
+    with activation_sharding(mesh, policy), implicit_replication():
+        loss1, _, g1 = T.value_and_grad(
+            lambda p: ST.split_lm_loss(cfg, p, groups, dbatch, rows),
+            dparams)
+    out["split_lm/loss"] = _rel(loss1, loss0)
+    out["split_lm/grads"] = _rel(g1, g0)
+
+
+def _rank_body():
+    from torch.distributed.device_mesh import init_device_mesh
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    out = {}
+    _ops(mesh, out)
+    _lm(mesh, out)
+    _split_lm(mesh, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ranks():
+    return tmesh.run_ranks(4, _rank_body, device_type="cpu", timeout=600)
+
+
+VALUES = ["embedding/value", "embedding/grad", "pad/value",
+          "write_slot/2", "write_slot/13", "decode_over_shards/5",
+          "decode_over_shards/13", "decode_over_shards/24",
+          "local_heads/value", "local_heads/grad", "train/loss",
+          "train/grads", "adam_step/loss", "prefill/logits",
+          "prefill/cache", "decode0/logits", "decode0/cache",
+          "decode1/logits", "decode1/cache", "split_lm/loss",
+          "split_lm/grads"]
+
+
+@pytest.mark.parametrize("key", VALUES)
+def test_dtensor_path_matches_plain(ranks, key):
+    for r, out in enumerate(ranks):
+        assert out[key] <= REL_TOL, (r, key, out[key])
+
+
+def test_adam_step_within_its_bound(ranks):
+    for r, out in enumerate(ranks):
+        assert out["adam_step/params_abs"] <= ADAM_TOL, (r, out)
+
+
+@pytest.mark.parametrize("key", ["embedding/partial", "pad/layout_kept",
+                                 "local_heads/layout_kept",
+                                 "split_lm/rank_rows"])
+def test_own_branch_taken(ranks, key):
+    assert all(out[key] == 1.0 for out in ranks), key
+
+
+def test_model_takes_the_rank_local_branches(ranks):
+    for out in ranks:
+        # 2 layers x (a loss, an Adam step's loss, a prefill)
+        assert out["taken/local_heads"] >= 6
+        # 2 layers x 2 decode steps
+        assert out["taken/decode_over_shards"] == 4
