@@ -192,9 +192,14 @@ Phases (any failure exits non-zero and prints no result):
      ``python -m repro_torch.launch.dryrun --arch granite-3-2b`` (its 4
      input shapes on the 256-card production mesh), ``python -m
      repro_torch.launch.dryrun_paper --lm granite-3-2b`` (the paper's
-     224-client GAN step and the split LM, 1 pod), then ``python -m
-     repro_torch.launch.roofline`` on the first's records; each must exit
-     0. The same dry run on the host mesh (1 rank) of two steps the card
+     224-client GAN step and the split LM, 1 pod), ``python -m
+     repro_torch.launch.dryrun --arch granite-moe-1b-a400m xlstm-350m
+     --shape train_4k prefill_32k`` (the MoE's rank-local expert dispatch
+     and the xLSTM's rank-local recurrences on the 256-card mesh; FLOPs,
+     collective bytes by kind, peak and trace seconds on the ``dryrun``
+     line), then ``python -m repro_torch.launch.roofline`` on the first's
+     records; each must exit 0 and no record may be an ``error``. The
+     same dry run on the host mesh (1 rank) of two steps the card
      runs: granite-3-2b at ``LM_TRAIN`` (phase 4d's timed step, counted
      by ``FlopCounterMode`` with the dry run's formulas, its peak read
      from ``max_memory_allocated``) and the slice's HuSCF-GAN step (8
@@ -2409,6 +2414,9 @@ def run_lm(train_main, serve_main, smi: str, device: str = "cuda") -> dict:
 # --- the dry runs (phase 4g) ------------------------------------------------
 
 DRYRUN_TIMEOUT = 900
+# the MoE and xLSTM pairs traced beside granite-3-2b's (1 pod)
+DRYRUN_FAMILIES = ("granite-moe-1b-a400m", "xlstm-350m")
+DRYRUN_FAMILY_SHAPES = ("train_4k", "prefill_32k")
 DRYRUN_FLOP_RTOL = 1e-3         # dry run against the card's count
 DRYRUN_PEAK_RANGE = (0.75, 1.25)  # predicted / measured peak bytes
 
@@ -2538,7 +2546,8 @@ def run_dryrun(tr, lm: dict, smi: str, device: str = "cuda",
     build = os.path.join(ROOT, "build")
     os.makedirs(build, exist_ok=True)
     paths = {k: os.path.join(build, f"{k}.jsonl")
-             for k in ("dryrun_torch", "dryrun_paper_torch")}
+             for k in ("dryrun_torch", "dryrun_paper_torch",
+                       "dryrun_families_torch")}
     for p in paths.values():
         if os.path.exists(p):
             os.remove(p)
@@ -2558,6 +2567,12 @@ def run_dryrun(tr, lm: dict, smi: str, device: str = "cuda",
                          "repro_torch.launch.dryrun_paper", "--lm", LM_ARCH,
                          "--out", paths["dryrun_paper_torch"],
                          "--device", device],
+        "dryrun_families": [sys.executable, "-m",
+                            "repro_torch.launch.dryrun", "--arch",
+                            *DRYRUN_FAMILIES, "--shape",
+                            *DRYRUN_FAMILY_SHAPES, "--out",
+                            paths["dryrun_families_torch"],
+                            "--device", device],
         "host": [sys.executable, "-c",
                  "import chip_smoke; chip_smoke.dryrun_host_child("
                  f"{host_in!r}, {host_out!r})"]}
@@ -2593,6 +2608,15 @@ def run_dryrun(tr, lm: dict, smi: str, device: str = "cuda",
     for k, p in paths.items():
         with open(p) as f:
             records[k] = [json.loads(line) for line in f]
+    errors = [r for v in records.values() for r in v if "error" in r]
+    if errors:
+        raise AssertionError(f"dry-run error records: {errors}")
+    families = {(r["arch"], r["shape"]) for r in
+                records["dryrun_families_torch"] if "cost" in r}
+    want = {(a, s) for a in DRYRUN_FAMILIES for s in DRYRUN_FAMILY_SHAPES}
+    if families != want:
+        raise AssertionError(f"dry-run records {sorted(families)}, "
+                             f"wanted {sorted(want)}")
 
     def brief(r):
         if "skipped" in r or "error" in r:

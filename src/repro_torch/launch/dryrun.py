@@ -50,7 +50,10 @@ writes its cache in place, as the donated reference does. The port's
 blocks run in a Python loop, not a ``lax.scan``, so every layer is
 counted: ``calibrate_scan_costs`` records ``cost_corrected`` equal to
 the count and ``scan_correction`` 1.0, so that ``roofline`` reads either
-package's records alike.
+package's records alike. A prefill's repeated layers are counted once
+and added again (``_Replay``), and so is every token's step of the
+mLSTM's and sLSTM's loops (``_StepReplay``): exact in FLOPs, within
+0.1 % in bytes and 3 % in peak bytes of running every step.
 
 Parameters sharded over the data axes (FSDP) are gathered where a layer
 uses them (``sharding.dtensor_ops.fsdp_gather``), as XLA's partitioner
@@ -59,8 +62,9 @@ its ``maybe_shard`` sites.
 
 Nothing happens at import: ``start_fake_group`` starts the fake group
 (from ``production_mesh`` and ``host_mesh``). A process has one default
-group, so ``main`` traces each pair in a spawned worker of its own, and
-a caller of ``build_lowered`` runs in a process of its own, e.g.
+group, so ``main`` traces each pair in a spawned worker of its own
+(``run_pairs``, which holds each worker to ``PAIR_TIMEOUT_S``), and a
+caller of ``build_lowered`` runs in a process of its own, e.g.
 ``python -m repro_torch.launch.dryrun --arch granite-3-2b --device cpu``.
 """
 from __future__ import annotations
@@ -471,23 +475,36 @@ def _signature(x):
     return repr(x)
 
 
+def _spec(x: torch.Tensor):
+    return (tuple(x.shape), tuple(x.stride()), x.dtype, x.requires_grad)
+
+
+def _meta(spec, counter: "OpCounter", requires_grad=False,
+          dense=False) -> torch.Tensor:
+    """A meta tensor of ``spec``'s shape, dtype and strides (``dense``:
+    contiguous, as a gradient is), counted as live."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    shape, stride, dtype, _ = spec
+    with _disable_current_modes():
+        t = (torch.empty(shape, dtype=dtype, device="meta") if dense else
+             torch.empty_strided(shape, stride, dtype=dtype, device="meta"))
+    counter._track(t)
+    return t.requires_grad_(requires_grad)
+
+
 def _fresh(x, counter: "OpCounter"):
     """A new result of ``x``'s structure: meta tensors (DTensors over
-    meta shards) of the same shapes, strides, dtypes and layouts."""
+    meta shards) of the same shapes, strides, dtypes and layouts, counted
+    as live (their making is not counted: the replayed counts hold the
+    operations that made the first result)."""
     from torch.distributed.tensor import DTensor
     if isinstance(x, DTensor):
-        loc = x._local_tensor
-        new = torch.empty_strided(loc.shape, loc.stride(), dtype=loc.dtype,
-                                  device="meta")
-        counter._track(new)
+        new = _meta(_spec(x._local_tensor), counter)
         return DTensor.from_local(new, x.device_mesh, x.placements,
                                   run_check=False, shape=x.shape,
                                   stride=x.stride())
     if isinstance(x, torch.Tensor):
-        new = torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
-                                  device="meta")
-        counter._track(new)
-        return new
+        return _meta(_spec(x), counter)
     if isinstance(x, dict):
         return {k: _fresh(v, counter) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
@@ -500,11 +517,13 @@ class _Replay:
     gradients off (a prefill) runs once per signature (``_signature``);
     a later call with the same signature adds the first call's counts
     and returns fresh meta results of its structure. Every layer of a
-    prefill repeats the same calls, and their loops are thousands of
-    meta operations each: the chunked attention's (at 32k tokens, 64
-    query chunks by up to 64 key chunks), the mLSTM's and sLSTM's (one
-    step per token), the RG-LRU's scan and the MoE's dispatch. Calls
-    that take gradients run every time."""
+    prefill repeats the same calls, and each is hundreds to thousands of
+    meta operations: the chunked attention's loop (at 32k tokens, 64
+    query chunks by up to 64 key chunks), the RG-LRU's scan, the MoE's
+    routing and its eight slots' dispatch, and the mLSTM's and sLSTM's
+    projections around their loops (whose steps ``_StepReplay`` replays
+    in the first call, and in training). Calls that take gradients run
+    every time."""
 
     TARGETS = (("repro_torch.models.attention", "chunked_attention"),
                ("repro_torch.models.transformer", "chunked_attention"),
@@ -545,6 +564,129 @@ class _Replay:
         return call
 
 
+class _StepRecord:
+    """One token's step of a recurrence, run once on stand-ins of its
+    inputs: the counts of its forward and (with gradients) its backward,
+    its outputs' layouts, and the bytes its backward keeps (the saved
+    tensors' storages, less those of the token's inputs, views of the
+    whole sequences the loop holds anyway, and of its outputs)."""
+
+    def __init__(self, counter: "OpCounter", fn, cell, state, xt):
+        c = counter
+        before = (c.flops, c.bytes, dict(c.collectives), dict(c.calls),
+                  c.peak)
+        grad = torch.is_grad_enabled()
+        ins = [_meta(_spec(x), c, grad and x.requires_grad)
+               for x in tuple(state) + tuple(xt)]
+        st, tok = ins[:len(state)], ins[len(state):]
+        whole = {x.untyped_storage()._cdata for x in tok}
+        held: Dict[int, int] = {}
+
+        def pack(x):
+            key = x.untyped_storage()._cdata
+            if key not in whole:
+                held[key] = x.untyped_storage().nbytes()
+            return x
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+            self.fwd = _Snapshot(c, lambda: fn(cell, st, tok))
+        outs = self.fwd.out
+        self.fwd.out = None
+        self.outs = [_spec(o) for o in outs]
+        # an output the step saves is counted as the output
+        for o in outs:
+            held.pop(o.untyped_storage()._cdata, None)
+        self.held = sum(held.values())
+        self.bwd = None
+        if grad:
+            diff = [o for o in outs if o.requires_grad]
+            need = [x for x in ins if x.requires_grad]
+            self.bwd = _Snapshot(c, lambda: torch.autograd.grad(
+                diff, need, [_out_grad(o, o is outs[-1], c) for o in diff]))
+            self.bwd.out = None
+        c.flops, c.bytes, c.collectives, c.calls, c.peak = before
+
+
+def _out_grad(o: torch.Tensor, stacked: bool, counter: "OpCounter"):
+    """A stand-in of the gradient the loop gives a step's output: the
+    state's comes from the next step's backward (dense); the last
+    output's, which the loop stacks over time, is a slice of the stacked
+    gradient (strided along the time axis), as ``unbind`` gives it."""
+    if not stacked:
+        return _meta(_spec(o), counter, dense=True)
+    shape = (o.shape[0], 2) + tuple(o.shape[1:])
+    return _meta((shape, None, o.dtype, False), counter, dense=True)[:, 0]
+
+
+class _ReplayedStep(torch.autograd.Function):
+    """A recorded step: its forward's counts and fresh outputs; a stand-in
+    of the bytes its backward keeps, saved so that a checkpoint drops and
+    recomputes it as it would the step's own; its backward's counts and
+    fresh gradients."""
+
+    @staticmethod
+    def forward(ctx, counter, rec, *ins):
+        rec.fwd.replay(counter)
+        held = _meta(((rec.held,), (1,), torch.uint8, False), counter)
+        ctx.save_for_backward(held)
+        # the last step's state gets no gradient: none is made up for it
+        ctx.set_materialize_grads(False)
+        ctx.counter, ctx.rec = counter, rec
+        ctx.ins = [_spec(x) for x in ins]
+        outs = tuple(_meta(o, counter) for o in rec.outs)
+        ctx.mark_non_differentiable(*(o for o, spec in zip(outs, rec.outs)
+                                      if not spec[3]))
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.rec.bwd.replay(ctx.counter)
+        return (None, None) + tuple(
+            _meta(spec, ctx.counter, dense=True) if need else None
+            for spec, need in zip(ctx.ins, ctx.needs_input_grad[2:]))
+
+
+class _StepReplay:
+    """Within the context, each token's step of the recurrences' loops
+    (``recurrent.step``: the mLSTM's and sLSTM's cells on each rank's own
+    shards) runs once per signature on stand-ins (``_StepRecord``); every
+    step of a loop, the first included, then adds that record's counts
+    and returns fresh outputs (``_ReplayedStep`` where gradients are on).
+    A loop of S steps thus counts S times one step's forward and
+    backward, exactly the products the loop runs (a ``lax.scan`` body
+    times its length in the reference's count), without running
+    thousands of meta operations per layer. A step given DTensors
+    (a layout the rank-local branch refuses) runs as it is."""
+
+    def __init__(self, counter: "OpCounter"):
+        self.counter, self.seen = counter, {}
+
+    def __enter__(self):
+        from repro_torch.models import recurrent
+        self.mod, self.orig = recurrent, recurrent.step
+        recurrent.step = self.step
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.step = self.orig
+        return False
+
+    def step(self, cell, state, xt):
+        from torch.distributed.tensor import DTensor
+        ins = tuple(state) + tuple(xt)
+        if any(isinstance(x, DTensor) for x in ins):
+            return self.orig(cell, state, xt)
+        grad = torch.is_grad_enabled() and any(x.requires_grad for x in ins)
+        key = (cell, len(state), grad, tuple(_spec(x) for x in ins))
+        rec = self.seen.get(key)
+        if rec is None:
+            rec = self.seen[key] = _StepRecord(self.counter, self.orig, cell,
+                                               state, xt)
+        if grad:
+            return _ReplayedStep.apply(self.counter, rec, *ins)
+        rec.fwd.replay(self.counter)
+        return tuple(_meta(o, self.counter) for o in rec.outs)
+
+
 class Lowered:
     """A traced call waiting to run: ``fn(*args)`` on DTensor inputs
     (``args``), under the mesh's activation layouts."""
@@ -558,7 +700,8 @@ class Lowered:
         counter = counter or OpCounter()
         counter.track(self.args)
         with activation_sharding(self.mesh, self.policy), \
-                implicit_replication(), _Replay(counter), counter:
+                implicit_replication(), _Replay(counter), \
+                _StepReplay(counter), counter:
             out = self.fn(*self.args)
         return out, counter
 
@@ -684,42 +827,102 @@ def run_pair(arch: str, shape_name: Union[str, InputShape], multi_pod: bool,
     return res
 
 
-# a pair whose trace runs longer is an ``error`` record (the xLSTM's
-# per-token loops at 4k and 32k tokens run past it)
+# a pair whose worker runs longer is an ``error`` record
 PAIR_TIMEOUT_S = 600
 
 
 def _pair(arch: str, shape: str, mp: bool, policy: ShardingPolicy,
           device: str) -> Dict[str, Any]:
-    """One pair's record, timed, in a pool worker (one torch thread, the
-    worker's own fake group of the mesh's size): an ``error`` record if
-    it raises or traces past ``PAIR_TIMEOUT_S``."""
-    import signal
-
-    def expire(*_):
-        raise TimeoutError(f"traced past {PAIR_TIMEOUT_S}s")
+    """One pair's record, timed, in a worker process (one torch thread,
+    the worker's own fake group of the mesh's size): an ``error`` record
+    if it raises."""
     torch.set_num_threads(1)
     t0 = time.time()
-    old = signal.signal(signal.SIGALRM, expire)
-    signal.alarm(PAIR_TIMEOUT_S)
     try:
         production_mesh(mp, device)
         res = run_pair(arch, shape, mp, policy, device=device)
     except Exception as e:
         res = {"arch": arch, "shape": shape, "multi_pod": mp,
                "error": f"{type(e).__name__}: {e}"}
-    finally:
-        signal.alarm(0)
-        signal.signal(signal.SIGALRM, old)
     res["wall_s"] = round(time.time() - t0, 1)
     return res
 
 
+def _work(fn: Callable, args: tuple, conn) -> None:
+    conn.send(fn(*args))
+    conn.close()
+
+
+def run_pairs(pairs, policy: ShardingPolicy, device: str, jobs: int,
+              report: Callable = lambda r: r,
+              timeout: float = PAIR_TIMEOUT_S, fn: Callable = _pair):
+    """``fn(arch, shape, multi_pod, policy, device)`` for each (arch,
+    shape, multi_pod) of ``pairs``, each in a spawned worker of its own
+    (a process has one default group, and this one starts none), at most
+    ``jobs`` at once; ``report`` takes each record as it comes. The
+    parent holds each worker to its deadline, ``timeout`` seconds after
+    it started: a worker still running then is terminated (killed if it
+    does not end), its slot goes to the next pair, and its pair is an
+    ``error`` record with its wall time. A worker that dies without a
+    record gives an ``error`` record too. The records, in the order they
+    came."""
+    import multiprocessing as mproc
+    from multiprocessing.connection import wait
+    ctx = mproc.get_context("spawn")
+    queue, running, out = list(pairs), {}, []
+
+    def failed(pair, why, t0):
+        arch, shape, mp = pair
+        return {"arch": arch, "shape": shape, "multi_pod": mp, "error": why,
+                "wall_s": round(time.time() - t0, 1)}
+    try:
+        while queue or running:
+            while queue and len(running) < jobs:
+                pair = queue.pop(0)
+                recv, send = ctx.Pipe(duplex=False)
+                proc = ctx.Process(target=_work, daemon=True,
+                                   args=(fn, tuple(pair) + (policy, device),
+                                         send))
+                proc.start()
+                send.close()
+                running[recv] = (proc, pair, time.time())
+            left = min(t0 + timeout for _, _, t0 in running.values())
+            for recv in wait(list(running), max(0.0, left - time.time())):
+                proc, pair, t0 = running.pop(recv)
+                try:
+                    res = recv.recv()
+                except EOFError:
+                    proc.join()
+                    res = failed(pair, f"worker exited with code "
+                                       f"{proc.exitcode}", t0)
+                proc.join()
+                recv.close()
+                out.append(report(res))
+            now = time.time()
+            for recv, (proc, pair, t0) in list(running.items()):
+                if now - t0 < timeout:
+                    continue
+                proc.terminate()
+                proc.join(5)
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+                del running[recv]
+                recv.close()
+                out.append(report(failed(
+                    pair, f"traced past {timeout:g} s", t0)))
+    finally:
+        for proc, _, _ in running.values():
+            proc.kill()
+            proc.join()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default=None)
-    ap.add_argument("--shape", default=None,
-                    choices=list(INPUT_SHAPES) + [None])
+    ap.add_argument("--arch", nargs="+", default=None)
+    ap.add_argument("--shape", nargs="+", default=None,
+                    choices=list(INPUT_SHAPES))
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--all", action="store_true")
@@ -734,8 +937,8 @@ def main(argv=None):
     policy = ShardingPolicy(fsdp=not args.no_fsdp,
                             seq_parallel=not args.no_seq_parallel,
                             shard_cache_seq=not args.no_cache_shard)
-    archs = list_archs() if args.all or not args.arch else [args.arch]
-    shapes = list(INPUT_SHAPES) if args.all or not args.shape else [args.shape]
+    archs = list_archs() if args.all or not args.arch else args.arch
+    shapes = list(INPUT_SHAPES) if args.all or not args.shape else args.shape
     meshes = [False, True] if (args.both_meshes or args.all) else \
         [args.multi_pod]
     pairs = [(arch, shape, mp) for mp in meshes for arch in archs
@@ -751,16 +954,9 @@ def main(argv=None):
                 f.write(json.dumps(res) + "\n")
         return res
 
-    # each pair in a spawned worker: a process has one default group, and
-    # this one starts none
-    import multiprocessing as mproc
-    from concurrent.futures import ProcessPoolExecutor, as_completed
-    jobs = min(len(pairs), len(os.sched_getaffinity(0)))
-    with ProcessPoolExecutor(jobs,
-                             mp_context=mproc.get_context("spawn")) as ex:
-        futs = [ex.submit(_pair, a, s, mp, policy, args.device)
-                for a, s, mp in pairs]
-        results = [report(f.result()) for f in as_completed(futs)]
+    results = run_pairs(pairs, policy, args.device,
+                        min(len(pairs), len(os.sched_getaffinity(0))),
+                        report)
     if any("error" in r for r in results):
         sys.exit(1)
     return results

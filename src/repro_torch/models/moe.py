@@ -11,16 +11,23 @@ Top-k takes the highest router probabilities with ties to the lowest
 expert index, as ``jax.lax.top_k`` does: a stable descending sort keeps
 equal probabilities in index order (``torch.topk`` promises no order on
 ties), so capacity overflow drops the same tokens as the reference.
+
+On DTensors (a mesh run) the routing and the aux losses are DTensor
+operations on the batch-split tokens, and the expert FFN (``experts``:
+``route``'s dispatch and combine, ``expert_ffn``'s einsums) runs on
+each rank's own batch rows and its own experts or ``d_ff`` slice
+(``sharding.dtensor_ops.local_experts``).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import nn
+from repro_torch.sharding.dtensor_ops import local_experts
 
 
 def moe_init(d_model: int, d_ff: int, n_experts: int, gen, device, *,
@@ -65,43 +72,79 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, *, top_k: int,
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
 
-    capacity = max(1, int(capacity_factor * S * top_k / E))
-
-    combine = torch.zeros((B, S, E, capacity), dtype=torch.float32,
-                          device=x.device)
-    dispatch = torch.zeros((B, S, E, capacity), dtype=torch.bool,
-                           device=x.device)
-    counts = torch.zeros((B, E), dtype=torch.int64, device=x.device)
-    for slot in range(top_k):
-        e = gate_idx[..., slot]                            # [B, S]
-        onehot = F.one_hot(e, E)                           # [B, S, E]
-        pos = torch.cumsum(onehot, dim=1) - 1 + counts[:, None, :]
-        pos_e = torch.gather(pos, 2, e[..., None])[..., 0]  # [B, S]
-        keep = pos_e < capacity
-        counts = counts + onehot.sum(1)
-        # one_hot of a position past capacity is all zeros, as in JAX
-        pos_oh = (pos_e[..., None] == torch.arange(
-            capacity, device=x.device)).float()            # [B, S, C]
-        contrib = onehot.float()[..., None] * pos_oh[..., None, :]
-        contrib = contrib * keep[..., None, None]
-        dispatch = dispatch | (contrib > 0)
-        combine = combine + contrib * gate_vals[..., slot][..., None, None]
-
-    xe = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), x)
-    hi = torch.einsum("becd,edf->becf", xe.float(), p["wi"].float())
-    if mlp_variant in ("swiglu", "geglu"):
-        hg = torch.einsum("becd,edf->becf", xe.float(), p["wg"].float())
-        act = (F.silu(hg) if mlp_variant == "swiglu" else nn.gelu(hg)) * hi
-    else:
-        act = nn.gelu(hi)
-    ye = torch.einsum("becf,efd->becd", act.to(x.dtype).float(),
-                      p["wo"].float())
-    out = torch.einsum("bsec,becd->bsd", combine, ye).to(x.dtype)
-
+    # the aux losses before the experts: a recomputed (checkpointed)
+    # layer then stops at the combine product's saved inputs, as the
+    # reference's remat recomputes only what its backward reads
     top1 = gate_idx[..., 0].reshape(-1)
     frac = F.one_hot(top1, E).float().mean(0)
     lb = E * torch.sum(frac * probs.reshape(-1, E).mean(0))
     z = torch.mean(torch.logsumexp(logits, -1) ** 2)
+    # every slot's choice, kept or dropped, as the reference counts them
+    counts = (gate_idx[..., None] == torch.arange(E, device=x.device))
     aux = {"load_balance": lb, "router_z": z,
-           "expert_counts": counts.sum(0).float()}
-    return out, aux
+           "expert_counts": counts.sum((0, 1, 2)).float()}
+
+    capacity = max(1, int(capacity_factor * S * top_k / E))
+    out = experts(x, gate_vals, gate_idx, p["wi"], p.get("wg"), p["wo"],
+                  capacity=capacity, mlp_variant=mlp_variant)
+    return out.to(x.dtype), aux
+
+
+@local_experts
+def experts(x: torch.Tensor, gate_vals: torch.Tensor, gate_idx: torch.Tensor,
+            wi: torch.Tensor, wg: Optional[torch.Tensor], wo: torch.Tensor, *,
+            capacity: int, mlp_variant: str = "swiglu", expert0: int = 0
+            ) -> torch.Tensor:
+    """The FFN of experts ``[expert0, expert0 + wi.shape[0])`` on the
+    tokens routed to them, combined with their gates: float32
+    ``[B, S, D]``, the sum over all experts when they are all here.
+    ``gate_idx``/``gate_vals`` ``[B, S, k]`` are each token's experts
+    and gates, in slot order."""
+    dispatch, combine = route(gate_idx, gate_vals,
+                              expert0 + torch.arange(wi.shape[0],
+                                                     device=x.device),
+                              capacity)
+    return expert_ffn(x, dispatch, combine, wi, wg, wo, mlp_variant)
+
+
+def route(gate_idx: torch.Tensor, gate_vals: torch.Tensor,
+          experts: torch.Tensor, capacity: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch (bool) and combine (float32) ``[B, S, E', C]`` of the
+    experts ``experts`` (E' of them): slot by slot, a token takes the
+    next free place of its expert in its row, and is dropped past
+    ``capacity``. An expert's places depend on its own tokens only, so
+    a subset of the experts gets exactly its slice of the whole."""
+    B, S, _ = gate_idx.shape
+    places = torch.arange(capacity, device=gate_idx.device)
+    combine = torch.zeros((B, S, experts.shape[0], capacity),
+                          dtype=torch.float32, device=gate_idx.device)
+    dispatch = torch.zeros(combine.shape, dtype=torch.bool,
+                           device=gate_idx.device)
+    counts = torch.zeros((B, experts.shape[0]), dtype=torch.int64,
+                         device=gate_idx.device)
+    for slot in range(gate_idx.shape[-1]):
+        onehot = (gate_idx[..., slot, None] == experts).long()  # [B, S, E']
+        pos = torch.cumsum(onehot, dim=1) - 1 + counts[:, None, :]
+        counts = counts + onehot.sum(1)
+        # a place past capacity matches none, as JAX's one_hot of it
+        contrib = onehot.float()[..., None] * (pos[..., None] == places)
+        dispatch = dispatch | (contrib > 0)
+        combine = combine + contrib * gate_vals[..., slot][..., None, None]
+    return dispatch, combine
+
+
+def expert_ffn(x: torch.Tensor, dispatch: torch.Tensor, combine: torch.Tensor,
+               wi: torch.Tensor, wg: Optional[torch.Tensor],
+               wo: torch.Tensor, mlp_variant: str) -> torch.Tensor:
+    """The experts' einsums: tokens into their places, the FFN per
+    expert with float32 results, and back out weighted by ``combine``."""
+    xe = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), x)
+    hi = torch.einsum("becd,edf->becf", xe.float(), wi.float())
+    if mlp_variant in ("swiglu", "geglu"):
+        hg = torch.einsum("becd,edf->becf", xe.float(), wg.float())
+        act = (F.silu(hg) if mlp_variant == "swiglu" else nn.gelu(hg)) * hi
+    else:
+        act = nn.gelu(hi)
+    ye = torch.einsum("becf,efd->becd", act.to(x.dtype).float(), wo.float())
+    return torch.einsum("bsec,becd->bsd", combine, ye)

@@ -11,7 +11,11 @@ agrees with the reference to float32 rounding of the products of decays,
 not bit for bit. mLSTM and sLSTM loop over time in Python: one cell
 update per step, 16-18 tensor ops each (the products, gates and
 normaliser), so a layer's forward launches ~17 S kernels for its
-recurrence; a fused chunkwise kernel is later work.
+recurrence; a fused chunkwise kernel is later work. On DTensors (a mesh
+run) the loops run on each rank's own batch rows and heads or hidden
+units (``dtensor_ops.local_recurrence``); the projections into them
+stay DTensor operations, and the mLSTM's head-wise output projection
+contracts each rank's shards (``dtensor_ops.heads_out``).
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import nn
-from repro_torch.sharding.dtensor_ops import pad
+from repro_torch.sharding.dtensor_ops import heads_out, \
+    local_recurrence, pad
 
 RG_LRU_C = 8.0
 
@@ -147,8 +152,20 @@ def _mlstm_qkvg(p, x):
     return q, k, v, i_gate, f_gate, o_gate
 
 
+def step(cell, state, xt):
+    """One token of a recurrence: ``cell(*state, *xt)``, the new state
+    and the output. The loops take each token's inputs from one
+    ``unbind`` of the sequence (its backward one ``stack``, where a
+    slice per step would scatter each step's gradient into a zero
+    tensor of the whole sequence). Every step of a loop has the same
+    shapes, which the dry run's count uses (``launch.dryrun``)."""
+    return cell(*state, *xt)
+
+
 def _mlstm_cell(C, n, q, k, v, it, ft, ot):
-    kv = torch.einsum("bnh,bng->bnhg", k, v)
+    # the outer product as a product over a dim of one, as the
+    # reference's dot_general without contracting dims counts it
+    kv = torch.matmul(k[..., :, None], v[..., None, :])
     C = ft[..., None, None] * C + it[..., None, None] * kv
     n = ft[..., None] * n + it[..., None] * k
     num = torch.einsum("bnhg,bnh->bng", C, q)
@@ -158,18 +175,22 @@ def _mlstm_cell(C, n, q, k, v, it, ft, ot):
 
 def mlstm_seq(p, x: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     """x [B,S,D] -> (out [B,S,D], state {C [B,N,hd,hd], n [B,N,hd]})."""
-    q, k, v, i_g, f_g, o_g = _mlstm_qkvg(p, x)
-    B, S, N, hd = q.shape
-    C = torch.zeros((B, N, hd, hd), dtype=torch.float32, device=x.device)
-    n = torch.zeros((B, N, hd), dtype=torch.float32, device=x.device)
-    hs = []
-    for t in range(S):
-        C, n, h = _mlstm_cell(C, n, q[:, t], k[:, t], v[:, t], i_g[:, t],
-                              f_g[:, t], o_g[:, t])
-        hs.append(h)
-    hs = torch.stack(hs, 1)                                 # [B,S,N,hd]
-    out = torch.einsum("bsnh,nhd->bsd", hs.to(x.dtype), p["wo"]).to(x.dtype)
+    hs, C, n = _mlstm_scan(*_mlstm_qkvg(p, x))              # [B,S,N,hd]
+    out = heads_out(hs.to(x.dtype), p["wo"]).to(x.dtype)
     return out, {"C": C, "n": n}
+
+
+@local_recurrence((2, 1, 1))
+def _mlstm_scan(q, k, v, i_g, f_g, o_g):
+    """The mLSTM over time from a zero state: (h [B,S,N,hd], C, n)."""
+    B, _, N, hd = q.shape
+    C = torch.zeros((B, N, hd, hd), dtype=torch.float32, device=q.device)
+    n = torch.zeros((B, N, hd), dtype=torch.float32, device=q.device)
+    hs = []
+    for xt in zip(*(x.unbind(1) for x in (q, k, v, i_g, f_g, o_g))):
+        C, n, h = step(_mlstm_cell, (C, n), xt)
+        hs.append(h)
+    return torch.stack(hs, 1), C, n
 
 
 def mlstm_step(p, x: torch.Tensor, state: Dict) -> Tuple[torch.Tensor, Dict]:
@@ -219,18 +240,24 @@ def _slstm_cell(c, n, m, z_t, i_t, f_t, o_t):
 def slstm_seq(p, x: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     """x [B,S,D] -> (out [B,S,D], state {c, n, m} [B, H]); ``m`` starts
     at -1e30 as in the reference."""
-    z, i, f, o = _slstm_pre(p, x)
-    B, S, H = z.shape
-    c = torch.zeros((B, H), dtype=torch.float32, device=x.device)
-    n = torch.zeros((B, H), dtype=torch.float32, device=x.device)
-    m = torch.full((B, H), -1e30, dtype=torch.float32, device=x.device)
-    hs = []
-    for t in range(S):
-        c, n, m, h = _slstm_cell(c, n, m, z[:, t], i[:, t], f[:, t], o[:, t])
-        hs.append(h)
-    hs = torch.stack(hs, 1)
+    hs, c, n, m = _slstm_scan(*_slstm_pre(p, x))
     out = (hs.to(x.dtype) @ p["w_out"]).to(x.dtype)
     return out, {"c": c, "n": n, "m": m}
+
+
+@local_recurrence((2, 1, 1, 1))
+def _slstm_scan(z, i, f, o):
+    """The sLSTM over time from its initial state: (h [B,S,H], c, n,
+    m)."""
+    B, _, H = z.shape
+    c = torch.zeros((B, H), dtype=torch.float32, device=z.device)
+    n = torch.zeros((B, H), dtype=torch.float32, device=z.device)
+    m = torch.full((B, H), -1e30, dtype=torch.float32, device=z.device)
+    hs = []
+    for xt in zip(*(x.unbind(1) for x in (z, i, f, o))):
+        c, n, m, h = step(_slstm_cell, (c, n, m), xt)
+        hs.append(h)
+    return torch.stack(hs, 1), c, n, m
 
 
 def slstm_step(p, x: torch.Tensor, state: Dict) -> Tuple[torch.Tensor, Dict]:

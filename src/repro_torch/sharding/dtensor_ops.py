@@ -17,7 +17,13 @@ reference's specs:
   lookup and a one-slot cache write on each rank's own shard;
 * ``local_heads``: attention on each rank's own batch rows and heads;
 * ``split_cache_decode``: decode attention over a cache whose slots are
-  split across ranks (partial softmaxes combined).
+  split across ranks (partial softmaxes combined);
+* ``local_experts``: the MoE's expert FFN on each rank's own batch rows
+  and its own experts (or its slice of ``d_ff``), the partial outputs
+  summed over the model axis by one collective;
+* ``local_recurrence``: a per-token recurrence (mLSTM, sLSTM) on each
+  rank's own batch rows and heads or hidden units, and ``heads_out``,
+  the mLSTM's head-wise output projection on each rank's shards.
 
 Every DTensor branch is held against the plain path on real values over
 gloo ranks by ``tests/test_torch_dtensor_ops.py``.
@@ -30,7 +36,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.policy import active_mesh, data_axes
+from repro_torch.sharding.policy import active_mesh, data_axes, \
+    maybe_shard
 
 
 def _is_dtensor(x) -> bool:
@@ -275,3 +282,228 @@ def decode_over_shards(q, k_cache, v_cache, cache_len: int):
         o = all_reduce(o, "sum", (mesh, d))
     out = (o / den).reshape(B, 1, H, hd).to(q.dtype)
     return DTensor.from_local(out, mesh, rows, run_check=False)
+
+
+# ---------------------------------------------------------------------------
+# experts and recurrences
+# ---------------------------------------------------------------------------
+
+def _even(x, placements, mesh) -> bool:
+    """Each sharded dim of ``x`` splits evenly over its mesh dims."""
+    from torch.distributed.tensor import Shard
+    ways = {}
+    for n, pl in zip(mesh.shape, placements):
+        if isinstance(pl, Shard):
+            ways[pl.dim] = ways.get(pl.dim, 1) * n
+    return all(x.shape[d] % n == 0 for d, n in ways.items())
+
+
+def _expert_shards(x, gate_vals, gate_idx, wi, wg, wo):
+    """(local arguments, first local expert, placements of the partial
+    output) of the expert FFN's DTensor arguments, or None unless: the
+    tokens and gates are laid out alike, each mesh dim splitting their
+    batch rows or holding them whole; the weights are split on the same
+    mesh dims, by experts (``wi``/``wg``/``wo`` dim 0: expert parallel)
+    or by ``d_ff`` (``wi``/``wg`` dim 2 and ``wo`` dim 1: tensor
+    parallel), and whole elsewhere; the tokens are whole on the mesh
+    dims that split the weights; every split is even."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    ws = [w for w in (wi, wg, wo) if w is not None]
+    if not all(_is_dtensor(t) for t in [x, gate_vals, gate_idx] + ws):
+        return None
+    mesh = x.device_mesh
+    if any(t.device_mesh != mesh for t in [gate_vals, gate_idx] + ws):
+        return None
+    if not (gate_vals.placements == gate_idx.placements == x.placements):
+        return None
+    if any(p not in (Replicate(), Shard(0)) for p in x.placements):
+        return None
+    # the split of each weight, by kind: dims (wi, wg, wo)
+    kinds = {"experts": (0, 0, 0), "ffn": (2, 2, 1)}
+    kind = None
+    for i, px in enumerate(x.placements):
+        pls = (wi.placements[i], (wi if wg is None else wg).placements[i],
+               wo.placements[i])
+        if all(p == Replicate() for p in pls):
+            continue
+        split = next((k for k, d in kinds.items()
+                      if pls == tuple(Shard(j) for j in d)), None)
+        if split is None or kind not in (None, split) or px != Replicate():
+            return None
+        kind = split
+    if not all(_even(t, t.placements, mesh) for t in [x] + ws):
+        return None
+    split_dims = [i for i, p in enumerate(wi.placements)
+                  if p != Replicate()]
+    x_grad = [Partial() if i in split_dims else p
+              for i, p in enumerate(x.placements)]
+
+    def weight(w):
+        if w is None:
+            return None
+        # a weight's gradient sums over the ranks that split the rows
+        grad = [p if i in split_dims else
+                Partial() if x.placements[i] == Shard(0) else p
+                for i, p in enumerate(w.placements)]
+        return _DenseGrad.apply(w.to_local(grad_placements=grad))
+
+    args = (_DenseGrad.apply(x.to_local(grad_placements=x_grad)),
+            _DenseGrad.apply(gate_vals.to_local(grad_placements=x_grad)),
+            gate_idx.to_local(), weight(wi), weight(wg), weight(wo))
+    expert0 = _local_offset(wi)[1][0] if kind == "experts" else 0
+    return args, expert0, x_grad
+
+
+def local_experts(fn):
+    """Decorates the MoE's expert FFN ``fn(x, gate_vals, gate_idx, wi,
+    wg, wo, *, expert0=0, **kw)`` (float32 ``[B, S, D]``, the sum over
+    the experts it is given, numbered from ``expert0``). DTensors laid
+    out as ``_expert_shards`` asks (the policy's expert-parallel or
+    tensor-parallel weights, tokens split by batch row) run ``fn`` on
+    each rank's own rows and experts or ``d_ff`` slice; each rank's
+    output is a partial sum over the model axis, summed by one
+    collective into the layout of the next ``resid`` site (a
+    reduce-scatter onto the sequence-parallel residual; an all-reduce
+    where the sequence does not split), in float32 before the caller
+    rounds it. No all-to-all: the tokens are whole on every rank of the
+    model axis already, and a rank reads its own experts' tokens from
+    them. Any other input goes to ``fn`` as it is (DTensor's rules)."""
+    @functools.wraps(fn)
+    def run(x, gate_vals, gate_idx, wi, wg, wo, **kw):
+        local = _expert_shards(x, gate_vals, gate_idx, wi, wg, wo)
+        if local is None:
+            return fn(x, gate_vals, gate_idx, wi, wg, wo, **kw)
+        from torch.distributed.tensor import DTensor
+        args, expert0, placements = local
+        return _sum_partials(DTensor.from_local(
+            fn(*args, expert0=expert0, **kw), x.device_mesh, placements,
+            run_check=False))
+    return run
+
+
+def _sum_partials(out):
+    """A ``[B, S, D]`` DTensor of partial sums summed into the layout of
+    the next ``resid`` site (a reduce-scatter onto the sequence-parallel
+    residual), or made whole where no site is active."""
+    from torch.distributed.tensor import Replicate
+    out = maybe_shard(out, "resid")
+    if any(p.is_partial() for p in out.placements):
+        out = out.redistribute(out.device_mesh, [
+            Replicate() if p.is_partial() else p for p in out.placements])
+    return out
+
+
+def _heads_plan(h, w):
+    """(h's, w's and the output's placements) for ``heads_out`` on
+    DTensors, per mesh dim: rows split stay split (the weight whole
+    there, its gradient summed over them); heads split take the weight
+    split by heads; where ``h`` is whole it takes the weight's split of
+    the heads or of ``hd``. None for plain tensors, any other layout or
+    an uneven split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if not (_is_dtensor(h) and _is_dtensor(w)
+            and h.device_mesh == w.device_mesh):
+        return None
+    plan = []
+    for ph, pw in zip(h.placements, w.placements):
+        if ph == Shard(0) and pw == Replicate():
+            plan.append((ph, pw, ph))
+        elif ph == Shard(2) and pw in (Replicate(), Shard(0), Shard(1)):
+            plan.append((ph, Shard(0), Partial()))
+        elif ph == Replicate() and pw in (Shard(0), Shard(1)):
+            plan.append((Shard(2 if pw == Shard(0) else 3), pw, Partial()))
+        elif ph == Replicate() and pw == Replicate():
+            plan.append((ph, pw, ph))
+        else:
+            return None
+    th, tw, out_pl = zip(*plan)
+    if not (_even(h, th, h.device_mesh) and _even(w, tw, h.device_mesh)):
+        return None
+    return th, tw, out_pl
+
+
+def heads_out(h, w):
+    """``einsum("bsnh,nhd->bsd", h, w)``, a head-wise output projection
+    (the mLSTM's). DTensors laid out as ``_heads_plan`` allows contract
+    on each rank's own shards (``w`` redistributed where the heads
+    split, ``h`` sliced locally where it is whole), and the partial sums
+    are summed by one collective into the next ``resid`` layout
+    (``_sum_partials``): DTensor's own einsum flattens ``(n, h)`` into
+    one dim, which some torch versions refuse when the inner of the two
+    is split. Anything else goes to the einsum as it is."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    plan = _heads_plan(h, w)
+    if plan is None:
+        return torch.einsum("bsnh,nhd->bsd", h, w)
+    th, tw, out_pl = plan
+    mesh = h.device_mesh
+    h = h if tuple(h.placements) == th else h.redistribute(mesh, th)
+    w = w if tuple(w.placements) == tw else w.redistribute(mesh, tw)
+    # the weight's gradient sums over the ranks that split the rows
+    w_grad = [Partial() if p == Shard(0) and q == Replicate() else q
+              for p, q in zip(th, tw)]
+    out = torch.einsum("bsnh,nhd->bsd",
+                       _DenseGrad.apply(h.to_local()),
+                       _DenseGrad.apply(w.to_local(grad_placements=w_grad)))
+    return _sum_partials(DTensor.from_local(out, mesh, out_pl,
+                                            run_check=False))
+
+
+def _recurrence_shards(xs):
+    """(local shards, placements) of the DTensors ``xs`` ``[B, S, N,
+    ...]`` brought to one layout: a mesh dim that splits dim 2 of any
+    input splits it in all, one that splits the batch rows (dim 0) of
+    all keeps them split, any other holds them whole. An input laid out
+    otherwise is redistributed to it (a local slice where it was whole;
+    DTensor moves a split of another dim, as a gate whose weight is
+    replicated may come split along the sequence). None if an input
+    holds partial sums or a split is uneven."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not all(_is_dtensor(t) and t.device_mesh == xs[0].device_mesh
+               and not any(p.is_partial() for p in t.placements)
+               for t in xs):
+        return None
+    mesh = xs[0].device_mesh
+    target = tuple(Shard(2) if Shard(2) in pls else
+                   Shard(0) if all(p == Shard(0) for p in pls) else
+                   Replicate()
+                   for pls in zip(*(t.placements for t in xs)))
+    if not all(_even(t, target, mesh) for t in xs):
+        return None
+    out = []
+    for t in xs:
+        if tuple(t.placements) != target:
+            t = t.redistribute(mesh, target)
+        out.append(_DenseGrad.apply(t.to_local()))
+    return out, target
+
+
+def local_recurrence(out_dims):
+    """Decorates a recurrence ``fn(*xs) -> tuple`` over time, whose
+    inputs ``[B, S, N, ...]`` are independent per batch row (dim 0) and
+    per index along dim 2 (a head, a hidden unit), and whose output j
+    has the batch rows on dim 0 and that index on dim ``out_dims[j]``.
+    DTensors (brought to one layout by ``_recurrence_shards``) run
+    ``fn`` on each rank's own shards, so no DTensor operation runs
+    inside its loop;
+    where no mesh dim splits dim 2 (heads that do not divide the model
+    axis), every rank of the model axis runs the same rows' loop.
+    The shards never split ``hd`` or the sequence: that would need a
+    collective per step. Inputs ``_recurrence_shards`` refuses, and plain
+    tensors, go to ``fn`` as they are (DTensor's rules)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*xs):
+            local = _recurrence_shards(xs)
+            if local is None:
+                return fn(*xs)
+            from torch.distributed.tensor import DTensor, Shard
+            shards, placements = local
+            mesh = xs[0].device_mesh
+            return tuple(
+                DTensor.from_local(o, mesh, [Shard(d) if p == Shard(2)
+                                             else p for p in placements],
+                                   run_check=False)
+                for o, d in zip(fn(*shards), out_dims))
+        return run
+    return wrap

@@ -38,13 +38,15 @@ import math
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 
 torch = pytest.importorskip("torch")
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
-from repro_torch.configs import INPUT_SHAPES, get_config, list_archs  # noqa
+from repro_torch.configs import (INPUT_SHAPES, get_config,  # noqa
+                                 get_smoke_config, list_archs)
 from repro_torch.launch import input_specs as tspecs  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -61,6 +63,18 @@ MESH_TOL = 0.02
 # (the replicated MLP ``wo``, module docstring)
 TRAIN_MESH_RATIO = 1.1944444
 TIMEOUT = 600
+# the MoE and xLSTM families at their smoke configs: granite-moe with 8
+# experts (expert parallel on the 8-way model axis, one per rank) and 8
+# heads (split 8 ways, as granite-3-2b's above), xlstm-350m as it is (2
+# mLSTM heads, whole on every rank of the model axis as the full
+# config's 4 are; the sLSTM's 256 hidden units split 8 ways)
+FAMILIES = {"granite-moe-1b-a400m": {"n_experts": 8, "n_heads": 8,
+                                     "n_kv_heads": 8},
+            "xlstm-350m": {}}
+# cards x per-rank / host FLOPs of the xLSTM on the 1-pod mesh, measured:
+# work replicated over the model axis (``test_family_production_mesh_flops``)
+FAMILY_MESH_RATIO = {("xlstm-350m", "train_s512"): 3.2426570,
+                     ("xlstm-350m", "prefill_s512"): 3.1986852}
 
 
 # ---------------------------------------------------------------------------
@@ -173,15 +187,19 @@ def jaxpr_flops(jaxpr) -> float:
     return total
 
 
-def _ref_lm_flops():
+def _ref_lm_flops(arch=ARCH, over=None):
+    """The reference's count of each ``SHAPES`` step of ``arch`` at
+    ``TINY`` (or ``FAMILIES[arch]``: its smoke config with ``over``)."""
     import jax
     from repro.configs import INPUT_SHAPES as RSHAPES
     from repro.configs import get_config as ref_config
+    from repro.configs import get_smoke_config as ref_smoke
     from repro.configs.base import InputShape
     from repro.launch.input_specs import input_specs
     from repro.models import transformer as RT
     from repro.optim import adam
-    cfg = dataclasses.replace(ref_config(ARCH), **TINY)
+    cfg = (dataclasses.replace(ref_config(ARCH), **TINY) if over is None
+           else dataclasses.replace(ref_smoke(arch), **over))
     out = {}
     for name, (S, B, kind) in SHAPES.items():
         RSHAPES[name] = InputShape(name, S, B, kind)
@@ -284,6 +302,27 @@ def torch_child(in_path: str, out_path: str) -> None:
             D.calibrate_scan_costs(ARCH, name, False, None, res)
             res["expected_argument_bytes"] = want
             out[f"{where}/{name}"] = res
+        for arch, over in FAMILIES.items():
+            fcfg = dataclasses.replace(get_smoke_config(arch), **over)
+            for name, shape in shapes.items():
+                out[f"{where}/{arch}/{name}"] = D.run_pair(
+                    arch, shape, False, device="cpu", mesh=mesh,
+                    cfg_override=fcfg)
+    # the recurrences' steps replayed against run one by one (32 tokens)
+    xcfg = get_smoke_config("xlstm-350m")
+    short = InputShape("train_s32", 32, 64, "train")
+    out["replay/steps"] = D.run_pair("xlstm-350m", short, False,
+                                     device="cpu", mesh=D.host_mesh("cpu"),
+                                     cfg_override=xcfg)
+    enter, leave = D._StepReplay.__enter__, D._StepReplay.__exit__
+    D._StepReplay.__enter__ = lambda self: self
+    D._StepReplay.__exit__ = lambda self, *exc: False
+    try:
+        out["replay/every_step"] = D.run_pair(
+            "xlstm-350m", short, False, device="cpu",
+            mesh=D.host_mesh("cpu"), cfg_override=xcfg)
+    finally:
+        D._StepReplay.__enter__, D._StepReplay.__exit__ = enter, leave
     # the paper's GAN step at the reference's cuts
     from repro_torch.core.latency import PAPER_DEVICES, Cut
     from repro_torch.core.splitting import group_by_profile
@@ -320,6 +359,8 @@ def runs(tmp_path_factory):
                                env=_env(), stdout=subprocess.PIPE,
                                stderr=subprocess.PIPE, text=True)
     lm = _ref_lm_flops()
+    families = {arch: _ref_lm_flops(arch, over)
+                for arch, over in FAMILIES.items()}
     gan_out, gan_err = ref_gan.communicate(timeout=TIMEOUT)
     assert ref_gan.returncode == 0, gan_err[-4000:]
     ref = json.loads(gan_out.strip().splitlines()[-1])
@@ -331,7 +372,7 @@ def runs(tmp_path_factory):
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=TIMEOUT)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    return {"ref_lm": lm, "ref_gan": ref["flops"],
+    return {"ref_lm": lm, "ref_gan": ref["flops"], "ref_families": families,
             "port": json.loads(res.read_text())}
 
 
@@ -422,3 +463,104 @@ def test_main_runs_each_pair_in_a_worker(tmp_path):
         assert (r["arch"], r["shape"]) == ("whisper-tiny", "long_500k")
         assert r["skipped"] == want and r["wall_s"] >= 0
     assert proc.stdout.count("[dryrun] whisper-tiny x long_500k") == 2
+
+
+FAMILY_PAIRS = [(a, n) for a in FAMILIES for n in SHAPES]
+
+
+@pytest.mark.parametrize("arch,name", FAMILY_PAIRS)
+def test_family_host_flops_match_reference(runs, arch, name):
+    """The MoE and xLSTM steps on one rank count the reference's jaxpr
+    FLOPs: the MoE's router, dispatch, expert and combine einsums, the
+    recurrences' per-token products (a ``scan`` body times its
+    length)."""
+    got = runs["port"][f"host/{arch}/{name}"]["cost"]["flops"]
+    want = runs["ref_families"][arch][name]
+    assert abs(got / want - 1) < REF_TOL, (got, want)
+
+
+@pytest.mark.parametrize("arch,name", FAMILY_PAIRS)
+def test_family_production_mesh_flops(runs, arch, name):
+    """Cards x per-rank FLOPs against the host count on the 256-card
+    mesh. The MoE within ``MESH_TOL``: each rank runs its own batch rows
+    through its own expert (no expert's work repeated across the model
+    axis), its 8 heads split 8 ways; only the router repeats (1 %). The
+    xLSTM at its measured ratio: its mLSTM's 2 heads stay whole on every
+    rank of the 8-way model axis (``policy.sanitize``), so the block's
+    q/k/v/gate projections and its per-token loop run 8 times over
+    (0.316 of the host count: 1 + 7 x 0.316 = 3.2 for prefill; the
+    backward and the checkpoint's recomputation repeat them too), as the
+    full config's 4 heads do; its out projection splits ``hd`` and the
+    sLSTM its hidden units."""
+    host = runs["port"][f"host/{arch}/{name}"]
+    prod = runs["port"][f"1pod/{arch}/{name}"]
+    assert prod["chips"] == 256 and "error" not in prod
+    ratio = prod["chips"] * prod["cost"]["flops"] / host["cost"]["flops"]
+    want = FAMILY_MESH_RATIO.get((arch, name), 1.0)
+    assert abs(ratio / want - 1) < MESH_TOL, ratio
+
+
+PAIR_LIMIT_S = 4
+
+
+def _blocking_pair(arch, shape, mp, policy, device):
+    """A pair that never ends, in a call that does not return to Python:
+    SIGALRM blocked, then a sleep (an alarm in the worker could never
+    fire)."""
+    import signal
+    signal.pthread_sigmask(signal.SIG_BLOCK, {signal.SIGALRM})
+    time.sleep(3600)
+
+
+def test_pair_past_its_limit_is_an_error_record():
+    """The parent holds each worker to its deadline: a worker blocked
+    past it is terminated and its pair comes back as an ``error`` record
+    with its wall time, within a few seconds of the limit."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.sharding.policy import ShardingPolicy
+    t0 = time.time()
+    recs = D.run_pairs([("xlstm-350m", "train_4k", False)], ShardingPolicy(),
+                       "cpu", 1, timeout=PAIR_LIMIT_S, fn=_blocking_pair)
+    wall = time.time() - t0
+    assert len(recs) == 1
+    rec = recs[0]
+    assert (rec["arch"], rec["shape"], rec["multi_pod"]) == (
+        "xlstm-350m", "train_4k", False)
+    assert rec["error"] == f"traced past {PAIR_LIMIT_S} s"
+    assert PAIR_LIMIT_S <= rec["wall_s"] <= PAIR_LIMIT_S + 3, rec
+    assert wall <= PAIR_LIMIT_S + 10, wall
+
+
+# cards x per-card peak / host peak of the tiny MoE on the 1-pod mesh:
+# measured 1.094 (train) and 1.12 (prefill); DTensor's own rules, which
+# build the dispatch and combine buffers at the global batch on every
+# rank, give 18 and 30
+MOE_PEAK_SPLIT = 1.25
+
+
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_moe_buffers_split_over_the_mesh(runs, name):
+    """The rank-local expert dispatch holds each card's own batch rows
+    and experts of the ``[B, S, E, C]`` dispatch and combine buffers, so
+    the cards' peaks add up to about the host's (the router, repeated on
+    the model axis, and a layer's gathered parameters above it)."""
+    arch = "granite-moe-1b-a400m"
+    host = runs["port"][f"host/{arch}/{name}"]["memory"]["peak_bytes"]
+    prod = runs["port"][f"1pod/{arch}/{name}"]
+    ratio = prod["chips"] * prod["memory"]["peak_bytes"] / host
+    assert ratio <= MOE_PEAK_SPLIT, ratio
+
+
+def test_step_replay_counts_every_step(runs):
+    """The dry run's replay of the recurrences' per-token steps
+    (``dryrun._StepReplay``) against the same trace running every step:
+    the FLOPs exactly, the bytes within 1e-3, the peak within 3 % (its
+    stand-in of a step's saved tensors)."""
+    rep = runs["port"]["replay/steps"]
+    every = runs["port"]["replay/every_step"]
+    assert rep["cost"]["flops"] == every["cost"]["flops"] > 0
+    assert rep["collectives"] == every["collectives"]
+    got, want = rep["cost"]["bytes_accessed"], every["cost"]["bytes_accessed"]
+    assert abs(got / want - 1) < 1e-3, (got, want)
+    got, want = rep["memory"]["peak_bytes"], every["memory"]["peak_bytes"]
+    assert abs(got / want - 1) < 0.03, (got, want)

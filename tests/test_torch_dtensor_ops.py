@@ -19,7 +19,16 @@ difference of the gathered (``full_tensor``) results:
   every parameter's gradient, one Adam step, prefill's logits and cache,
   two decode steps over a cache split along its slots (its logits and
   written cache);
-* the split LM's loss and gradients with ``dryrun_paper.RankRows``.
+* the split LM's loss and gradients with ``dryrun_paper.RankRows``;
+* the MoE FFN (experts split over the model axis, and a count of
+  experts that does not divide it: ``d_ff`` split instead), the mLSTM
+  (heads split, and heads whole on every rank of the model axis) and
+  the sLSTM, each alone (value, aux losses and expert counts, the
+  input's and every parameter's gradient) and as a tiny LM's train
+  loss and gradients; the rank-local branch counted in every layer (and
+  the mLSTM's head-wise output projection on the ranks' shards), and
+  the DTensor operations dispatched inside the expert einsums and the
+  recurrences' steps counted (none).
 
 Tolerance: 2e-6 of the largest magnitude of the plain result, for
 values and gradients in float32 (the ranks sum partial products in
@@ -301,6 +310,186 @@ def _split_lm(mesh, out):
     out["split_lm/grads"] = _rel(g1, g0)
 
 
+class _DTensorOps:
+    """Counts the DTensor operations dispatched while it is entered
+    (a dispatch mode sees them before DTensor does)."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.distributed.tensor import DTensor
+        from torch.utils._pytree import tree_leaves
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if any(isinstance(t, DTensor)
+                       for t in tree_leaves((args, kwargs or {}))):
+                    counter.n += 1
+                    return NotImplemented
+                return func(*args, **(kwargs or {}))
+        self.n, self.calls, self.mode = 0, 0, Mode
+
+    def wrap(self, fn):
+        def run(*a, **k):
+            self.calls += 1
+            with self.mode():
+                return fn(*a, **k)
+        return run
+
+
+MOE_CASES = {"moe_ep": 4, "moe_tp": 3}        # experts on a 2-way axis
+RECURRENT_CASES = {"mlstm_split": 4, "mlstm_whole": 3}   # heads
+
+
+def _tiny(case):
+    from repro_torch.configs import get_config
+    if case in MOE_CASES:
+        return dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                                   **TINY, n_experts=MOE_CASES[case],
+                                   moe_top_k=2)
+    return dataclasses.replace(get_config("xlstm-350m"),
+                               **dict(TINY, n_heads=RECURRENT_CASES[case],
+                                      n_kv_heads=RECURRENT_CASES[case],
+                                      d_ff=0, d_rnn=16))
+
+
+def _layer(mesh, out, case, kind, cfg):
+    """One MoE, mLSTM or sLSTM layer alone: its value (and the MoE's aux
+    losses and counts), the input's and every parameter's gradient."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.models import moe as M
+    from repro_torch.models import recurrent as R
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import dtensor_ops as dt
+    from repro_torch.sharding.policy import (ShardingPolicy, act_spec,
+                                             activation_sharding, sanitize,
+                                             to_placements, tree_param_specs)
+    policy = ShardingPolicy()
+    g = torch.Generator().manual_seed(3)
+    params = T.init_block(cfg, kind, g, "cpu")
+    name = {"attn": "moe"}.get(kind, kind)
+    params = {name: params[name]}
+    x = torch.randn(B, S, cfg.d_model, generator=g)
+    w = torch.randn(B, S, cfg.d_model, generator=g)
+
+    def apply(p, x):
+        if kind == "attn":
+            o, aux = M.moe_apply(p["moe"], x, top_k=cfg.moe_top_k,
+                                 capacity_factor=cfg.capacity_factor,
+                                 mlp_variant=cfg.mlp_variant)
+            return o, aux, aux["load_balance"] + 1e-3 * aux["router_z"]
+        o, st = getattr(R, f"{kind}_seq")(p[kind], x)
+        return o, st, torch.zeros(())
+
+    def run(p, x):
+        p = T.tree_map(lambda t: t.detach().requires_grad_(True), p)
+        x = x.detach().requires_grad_(True)
+        o, aux, extra = apply(dt.fsdp_gather(p), x)
+        loss = (_whole(o) * w).sum() + _whole(extra)
+        flat = [x] + list(T.tree_leaves(p))
+        grads = torch.autograd.grad(loss, flat)
+        return o, aux, grads
+
+    o0, aux0, g0 = run(params, x)
+    dparams = _dist(mesh, params, tree_param_specs(mesh, policy, params))
+    spec = sanitize(mesh, x.shape, act_spec(mesh, policy, "resid_inner"))
+    dx = distribute_tensor(x, mesh, to_placements(mesh, spec))
+    with activation_sharding(mesh, policy), implicit_replication():
+        o1, aux1, g1 = run(dparams, dx)
+    out[f"{case}/{kind}/value"] = _rel(o1, o0)
+    out[f"{case}/{kind}/aux"] = _rel(aux1, aux0)
+    out[f"{case}/{kind}/grads"] = _rel(list(g1), list(g0))
+
+
+def _branches(mesh, out):
+    """The MoE and recurrent layers alone and in a tiny LM's train step,
+    with their rank-local branches and the DTensor operations inside
+    them counted."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import moe as M
+    from repro_torch.models import recurrent as R
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import dtensor_ops as dt
+    from repro_torch.sharding.policy import (ShardingPolicy,
+                                             activation_sharding,
+                                             tree_param_specs)
+    policy = ShardingPolicy()
+    taken = {"experts": 0, "recurrence": 0, "heads_out": 0}
+    expert_shards, recurrence_shards = dt._expert_shards, dt._recurrence_shards
+    heads_plan = dt._heads_plan
+
+    def counted(key, fn):
+        def run(*a):
+            r = fn(*a)
+            taken[key] += r is not None
+            return r
+        return run
+    inner = {"experts": _DTensorOps(), "recurrence": _DTensorOps()}
+    orig = {(M, "route"): M.route, (M, "expert_ffn"): M.expert_ffn,
+            (R, "_mlstm_cell"): R._mlstm_cell,
+            (R, "_slstm_cell"): R._slstm_cell}
+    dt._expert_shards = counted("experts", expert_shards)
+    dt._recurrence_shards = counted("recurrence", recurrence_shards)
+    dt._heads_plan = counted("heads_out", heads_plan)
+    for (mod, name), fn in orig.items():
+        setattr(mod, name, inner["experts" if mod is M
+                                 else "recurrence"].wrap(fn))
+    try:
+        for case in list(MOE_CASES) + list(RECURRENT_CASES):
+            cfg = _tiny(case)
+            kinds = ("attn",) if case in MOE_CASES else ("slstm", "mlstm")
+            for kind in kinds:
+                if case == "mlstm_whole" and kind == "slstm":
+                    continue            # the same sLSTM as "mlstm_split"
+                before = dict(taken)
+                _layer(mesh, out, case, kind, cfg)
+                key = "experts" if kind == "attn" else "recurrence"
+                out[f"taken/{case}/{kind}"] = float(
+                    taken[key] - before[key])
+                if kind == "mlstm":
+                    out[f"taken/{case}/heads_out"] = float(
+                        taken["heads_out"] - before["heads_out"])
+            # the tiny LM: a train loss and every parameter's gradient
+            g = torch.Generator().manual_seed(4)
+            params = T.init_lm(cfg, g, device="cpu")
+            batch = {"tokens": torch.randint(0, cfg.vocab, (B, S),
+                                             generator=g),
+                     "labels": torch.randint(0, cfg.vocab, (B, S),
+                                             generator=g)}
+            dparams = _dist(mesh, params,
+                            tree_param_specs(mesh, policy, params))
+            dbatch = _dist(mesh, batch,
+                           D._batch_shardings(mesh, policy, batch))
+            loss0, aux0, g0 = T.value_and_grad(
+                lambda p: T.lm_loss(cfg, p, batch), params)
+            before = dict(taken)
+            with activation_sharding(mesh, policy), implicit_replication():
+                loss1, aux1, g1 = T.value_and_grad(
+                    lambda p: T.lm_loss(cfg, p, dbatch), dparams)
+            out[f"{case}/lm/loss"] = _rel([loss1, aux1], [loss0, aux0])
+            out[f"{case}/lm/grads"] = _rel(g1, g0)
+            # a recomputed super-block takes the branch twice per layer
+            key = "experts" if case in MOE_CASES else "recurrence"
+            out[f"taken/{case}/lm"] = float(taken[key] - before[key])
+    finally:
+        dt._expert_shards, dt._recurrence_shards = (expert_shards,
+                                                    recurrence_shards)
+        dt._heads_plan = heads_plan
+        for (mod, name), fn in orig.items():
+            setattr(mod, name, fn)
+    for key, c in inner.items():
+        out[f"inner/{key}/dtensor_ops"] = float(c.n)
+        out[f"inner/{key}/calls"] = float(c.calls)
+    # the counter sees a DTensor operation where one runs
+    control = _DTensorOps()
+    x = distribute_tensor(torch.ones(B, S), mesh, [Shard(0), Replicate()])
+    control.wrap(lambda: x + 1)()
+    out["inner/control/dtensor_ops"] = float(control.n)
+
+
 def _rank_body():
     from torch.distributed.device_mesh import init_device_mesh
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
@@ -308,6 +497,7 @@ def _rank_body():
     _ops(mesh, out)
     _lm(mesh, out)
     _split_lm(mesh, out)
+    _branches(mesh, out)
     return out
 
 
@@ -327,7 +517,14 @@ VALUES = ["embedding/value", "embedding/grad", "pad/value",
           "train/grads", "adam_step/loss", "prefill/logits",
           "prefill/cache", "decode0/logits", "decode0/cache",
           "decode1/logits", "decode1/cache", "split_lm/loss",
-          "split_lm/grads"]
+          "split_lm/grads"] + [
+    f"{case}/{part}" for case in list(MOE_CASES) + list(RECURRENT_CASES)
+    for part in (("attn/value", "attn/aux", "attn/grads")
+                 if case in MOE_CASES else
+                 ("mlstm/value", "mlstm/aux", "mlstm/grads")
+                 + (("slstm/value", "slstm/aux", "slstm/grads")
+                    if case == "mlstm_split" else ()))
+    + ("lm/loss", "lm/grads")]
 
 
 @pytest.mark.parametrize("key", VALUES)
@@ -354,3 +551,34 @@ def test_model_takes_the_rank_local_branches(ranks):
         assert out["taken/local_heads"] >= 6
         # 2 layers x 2 decode steps
         assert out["taken/decode_over_shards"] == 4
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES) + list(RECURRENT_CASES))
+def test_rank_local_branch_in_every_layer(ranks, case):
+    """Each layer alone takes its branch once; the tiny LM's train step
+    takes it in each of its layers (MoE: one per block; xLSTM: the
+    sLSTM and mLSTM blocks), twice over: the forward and the
+    recomputation of its checkpointed super-block in the backward."""
+    layers = 2
+    kinds = (("attn",) if case in MOE_CASES else
+             ("slstm", "mlstm") if case == "mlstm_split" else ("mlstm",))
+    for out in ranks:
+        for kind in kinds:
+            assert out[f"taken/{case}/{kind}"] == 1.0, (case, kind)
+        if case in RECURRENT_CASES:
+            # the mLSTM's output projection on each rank's shards
+            assert out[f"taken/{case}/heads_out"] == 1.0, case
+        assert out[f"taken/{case}/lm"] == 2 * layers, case
+
+
+@pytest.mark.parametrize("key", ["experts", "recurrence"])
+def test_no_dtensor_op_inside_the_loops(ranks, key):
+    """No DTensor operation runs inside the expert einsums (``route``,
+    ``expert_ffn``) or a recurrence's steps (``_mlstm_cell``,
+    ``_slstm_cell``) on the mesh: their inputs are each rank's own
+    shards, whatever DTensor's view rules of the torch version."""
+    for out in ranks:
+        assert out["inner/control/dtensor_ops"] >= 1.0
+        assert out[f"inner/{key}/calls"] > 0, key
+        assert out[f"inner/{key}/dtensor_ops"] == 0.0, key
+
