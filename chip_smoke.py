@@ -177,8 +177,28 @@ Phases (any failure exits non-zero and prints no result):
      rank holds the whole state), the largest difference of the losses,
      EMA and parameters from the 1-rank mesh (first losses within
      MESH_STEP_RTOL, parameters within 2 lr ``adam_bound``), the
-     server's replicas equal bit for bit; ``fused_epoch=True`` on the
-     card raises; then a dense clustered round (one K1 per net at [S,
+     server's replicas equal bit for bit; on 2 and 4 ranks the sharded
+     fused epoch (``check_mesh_fused``: an eager warm-up step, then CUDA
+     graphs whose 57 all-reduces per step run the shared all-reduce
+     kernel, ``csrc/shared_allreduce.cu``) against the per-step gloo
+     loop (MESH_FUSED_STEPS steps: every graph step, replays included,
+     against a loop step from the state and draws it started from with
+     its sums in the kernel's rank order, losses and EMA rows within
+     MESH_STEP_RTOL, Adam's first moments within MESH_MOMENT_RTOL
+     (beside a second loop step's spread); against the gloo loop's epoch
+     from the same state, the first losses and EMA within
+     MESH_STEP_RTOL and the parameters within 2 lr ``adam_bound``; the
+     server's replicas bit for bit, no
+     gloo call after the warm-up, the kernel's launches set to 0 just before
+     and its runs counted on the device, 57 per step; s per step on
+     graphs and on the loop, capture seconds, a replayed step's kernels
+     and host launches, peak bytes), and the kernel alone at the step's
+     message sizes (``check_shared_allreduce``: eager and over
+     SAR_REPLAYS graph replays with fresh inputs, bit for bit against
+     the plain rank-order sum, within SAR_GLOO_RTOL of gloo's, the error
+     word 0; µs eager, replayed, gloo's, the plain version's, the byte
+     bound); the NCCL route logs ``not run: 1 GPU`` on one card; then a
+     dense clustered round (one K1 per net at [S,
      56/n] @ [56/n, D]) and a chunked one (agg_chunk 4, one K1 per chunk
      tile of each rank's block) on the rank's own rows, each within
      MESH_TOL / MESH_CHUNK_TOL of the unsharded round from the same
@@ -260,8 +280,10 @@ Phases (any failure exits non-zero and prints no result):
      ``dryrun`` line (phase 4g), one with the
      kernels (K1 and K2 with their population shapes, launches and the
      re-cut, quality, legacy and mesh runs' launches, K1 at the mesh's
-     row blocks and at the sharded population's local rows), then the
-     result line.
+     row blocks and at the sharded population's local rows, K3 and K4,
+     and the shared all-reduce with its runs per sharded fused step and
+     its times at every message on 2 and 4 ranks), then the result
+     line.
 
 Float32 products and convolutions run in full float32 (TF32 off).
 """
@@ -3371,8 +3393,11 @@ def mesh_sizes() -> dict:
 
 
 def _sync(device) -> None:
+    """Wait for the card (nothing while a CUDA graph is being captured,
+    where a synchronisation is an error)."""
     import torch
-    if torch.device(device).type == "cuda":
+    if torch.device(device).type == "cuda" and \
+            not torch.cuda.is_current_stream_capturing():
         torch.cuda.synchronize()
 
 
@@ -3732,23 +3757,362 @@ def _mesh_population(mesh, cuts, clock, device, sz, first=None) -> dict:
             "params": max(float((params[p] - first["params"][p]).abs().max())
                           for p in params)}
     del params
+    # the steps' and rounds' peak; the fused checks read their own
+    peak = torch.cuda.max_memory_allocated() if on_cuda else 0
     if tr.step_sharded:
-        # the card's fused epoch cannot capture the sharded step's
-        # collectives; on the CPU a stand-in pool exercises the guard
-        pool = tr._graph_pool
-        tr._graph_pool = pool if pool is not None else object()
-        tr.cfg = dataclasses.replace(tr.cfg, fused_epoch=True)
-        try:
-            tr.train_steps(1)
-            out["fused_guard"] = None
-        except ValueError as e:
-            out["fused_guard"] = str(e)
-        tr._graph_pool = pool
-        tr.cfg = dataclasses.replace(tr.cfg, fused_epoch=False)
+        out["fused"] = check_mesh_fused(tr, mesh, clock)
+        if on_cuda:
+            out["shared_allreduce"] = check_shared_allreduce(
+                mesh, step_messages(out["fused"]["messages"]), device)
+            torch.cuda.reset_peak_memory_stats()
     out["rounds"] = [_local_round(tr, clock, None),
                      _local_round(tr, clock, sz["chunk"])]
-    out["peak_bytes"] = (torch.cuda.max_memory_allocated() if on_cuda
-                         else 0)
+    out["peak_bytes"] = (max(peak, torch.cuda.max_memory_allocated())
+                         if on_cuda else 0)
+    return out
+
+
+# the sharded fused epoch against the loop; the first step of the fused
+# epoch is its eager warm-up, the second captures the step, the rest
+# replay it
+MESH_FUSED_STEPS = 4
+# Adam's first moments after a graph step against a loop step from the
+# same state (the norm of the difference over the norm): two loop steps
+# from one state differ by up to 2.4e-3 on the card (the order of its
+# atomic adds, amplified by the server's BatchNorm backward), a wrong sum
+# (a stale slot, a rank's partial missing) by 1e-1 and more
+MESH_MOMENT_RTOL = 1e-2
+# the shared all-reduce alone: replays of a captured call, each with
+# fresh inputs, held bit for bit to the plain rank-order sum; calls per
+# timed loop; gloo's all_reduce adds in another order: within 1e-6 of
+# the summed magnitudes
+SAR_REPLAYS = 100
+SAR_TIMED = 20
+SAR_GLOO_RTOL = 1e-6
+
+
+def step_messages(sizes: dict) -> dict:
+    """The sharded GAN step's messages by kind, from the sizes (floats)
+    its all-reduces had: the packed server gradients of G and of D (the
+    two largest), the loss pair (2 floats) and the largest BatchNorm
+    statistics message (the largest of the rest)."""
+    by = sorted((int(n) for n in sizes), reverse=True)
+    grads = by[:2]
+    rest = [n for n in by[2:] if n != 2]
+    return {"grads_a": grads[0], "grads_b": grads[1],
+            "batchnorm": rest[0], "losses": 2}
+
+
+def _local_leaves(tr) -> dict:
+    """Copies of this rank's own leaves (its client rows and the
+    replicated server), by path: both nets' parameters and BatchNorm
+    statistics, and Adam's first moments."""
+    from repro_torch.core.huscf import _carry_items
+    return {p: x.clone() for p, x in _carry_items(tr.state)
+            if p[0] in ("G", "D") or p[1] == "mu"}
+
+
+class _RankOrder:
+    """A fused epoch's collectives for the step loop: ``all_reduce_sum``
+    on ``coll``'s mesh through the shared all-reduce's plain version
+    (gloo's all_gather, then the rank-order float32 sum), so that a loop
+    step adds its partials in the order the kernel does."""
+
+    def __init__(self, coll):
+        self.coll = coll
+
+    def serves(self, mesh) -> bool:
+        return self.coll.serves(mesh)
+
+    def all_reduce(self, x, ax: str) -> None:
+        from repro_torch.kernels import shared_allreduce as sa
+        from repro_torch.launch import mesh as M
+        sa.plain_all_reduce(x, self.coll.groups[ax])
+        M.calls["all_gather"] += 1
+
+
+def _step_vs_loop(graph: dict, loop: dict, ema_g, ema_l, tol: float
+                  ) -> dict:
+    """One step from one state on this rank, a graph step against a loop
+    step: the losses' and the EMA rows' largest relative difference; with
+    ``leaves``, Adam's first moments (linear in the gradients, which
+    Adam's normalised parameter step hides) as the norm of the
+    difference over the norm, the larger of the two optimizers', and the
+    parameters' largest difference beside ``tol``."""
+    import numpy as np
+    out = {"loss_rel": max(abs(graph["losses"][k] - loop["losses"][k])
+                           / abs(loop["losses"][k]) for k in loop["losses"]),
+           "ema_rel": float(np.abs(ema_g - ema_l).max())
+           / max(float(np.abs(ema_l).max()), 1e-30)}
+    g_state, l_state = graph["leaves"], loop["leaves"]
+    if not l_state:
+        return out
+    moment = {}
+    for opt in ("opt_g", "opt_d"):
+        keys = [p for p in l_state if p[:2] == (opt, "mu")]
+        diff = sum(float((g_state[p] - l_state[p]).double().square().sum())
+                   for p in keys)
+        scale = sum(float(l_state[p].double().square().sum()) for p in keys)
+        moment[opt] = (diff / max(scale, 1e-300)) ** 0.5
+    out.update(moment_rel=max(moment.values()),
+               params=max(float((g_state[p] - l_state[p]).abs().max())
+                          for p in l_state if p[0] in ("G", "D")),
+               params_tol=tol)
+    return out
+
+
+def check_mesh_fused(tr, mesh, clock) -> dict:
+    """The client-sharded step's fused epoch on ``mesh`` (on the card: an
+    eager warm-up step, then CUDA graphs whose all-reduces run the
+    shared all-reduce kernel) against the per-step loop, MESH_FUSED_STEPS
+    steps, every step an epoch of its own (its losses read back).
+
+    Two comparisons. Every step of the graph epoch (the warm-up, the
+    captured step, the replays) against one loop step from the state and
+    draws that graph step started from, its sums taken in the kernel's
+    rank order (``_RankOrder``: gloo's all_gather and the plain sum), on
+    every rank: the losses and this rank's EMA rows after the step
+    within MESH_STEP_RTOL, Adam's first moments (linear in the
+    gradients) within MESH_MOMENT_RTOL, the parameters within 2 lr
+    ``adam_bound`` of one step, and beside them a second loop step from
+    that state against the first (the card's spread between runs); the
+    epoch then goes on from the graph step's own state. And
+    the whole epoch against the gloo loop's MESH_FUSED_STEPS steps from
+    the same first state: the first step's losses and EMA rows within
+    MESH_STEP_RTOL, the parameters at the end within 2 lr
+    ``adam_bound`` of them all (gloo adds in another order, which Adam
+    turns into steps of either sign). The server's replicas bit for bit,
+    no gloo call inside a graph epoch after the warm-up, the kernel run
+    57 times per step (its device-side count); capture seconds, s per
+    step on graphs and on the loop, one replayed step profiled (kernels
+    and host launches), peak bytes. The graphs and the kernel's buffers
+    are dropped after (a collective)."""
+    from collections import Counter
+    import torch
+    from repro_torch.kernels import shared_allreduce as sa
+    from repro_torch.launch import mesh as M
+    on_cuda = tr.device.type == "cuda"
+    gloo = ("all_reduce", "all_gather", "broadcast")
+    b1 = tr.cfg.adam_b1
+    s0 = snapshot(tr)
+    start = int(s0["state"]["opt_d"].step)
+
+    def timed_step(fused: bool):
+        tr.cfg = dataclasses.replace(tr.cfg, fused_epoch=fused)
+        _sync(tr.device)
+        t0 = time.perf_counter()
+        losses = tr.train_steps(1)
+        _sync(tr.device)
+        return losses, time.perf_counter() - t0
+
+    # the loop's own epoch from s0
+    restore(tr, s0)
+    M.calls.clear()
+    clock.take()
+    loop = {"losses": [], "step_s": []}
+    for i in range(MESH_FUSED_STEPS):
+        losses, wall = timed_step(False)
+        loop["losses"].append(losses)
+        loop["step_s"].append(wall)
+        if i == 0:
+            loop["ema"] = tr._mid_ema.cpu().numpy()
+    loop["calls"] = dict(M.calls)
+    loop["params"] = _whole_params(tr)
+
+    # the graph epoch from s0, each step beside a loop step from its state
+    restore(tr, s0)
+    del s0
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    warm_calls = {}
+    if tr._graph_pool is not None:
+        pool, warm_up = tr._graph_pool, tr._graph_pool.warm_up
+
+        def warm(step, pool=pool, warm_up=warm_up):
+            warm_up(step)
+            warm_calls.update({k: M.calls[k] for k in gloo})
+        pool.warm_up = warm
+    sa.launches = 0
+    graph = {"losses": [], "step_s": [], "calls": Counter(), "steps": [],
+             "gloo_calls_after_warm_up": 0, "peak_bytes": 0}
+    for i in range(MESH_FUSED_STEPS):
+        before = snapshot(tr)
+        M.calls.clear()
+        warm_calls.clear()
+        losses, wall = timed_step(True)
+        graph["calls"].update(M.calls)
+        after = warm_calls if i == 0 and warm_calls else {}
+        graph["gloo_calls_after_warm_up"] += sum(
+            M.calls[k] - after.get(k, 0) for k in gloo)
+        if on_cuda:
+            graph["peak_bytes"] = max(graph["peak_bytes"],
+                                      torch.cuda.max_memory_allocated())
+        graph["losses"].append(losses)
+        graph["step_s"].append(wall)
+        g = {"losses": losses, "leaves": _local_leaves(tr)}
+        ema_g = tr._mid_ema.cpu().numpy()
+        if i == 0:
+            graph["ema"] = ema_g
+        ahead = snapshot(tr)
+        # two loop steps from that state: the first the reference, the
+        # second the card's own spread between runs (atomics)
+        refs = []
+        for _ in range(2):
+            restore(tr, before)
+            with M.graph_collectives(_RankOrder(tr._graph_coll)):
+                lost, _ = timed_step(False)
+            refs.append(({"losses": lost, "leaves": _local_leaves(tr)},
+                         tr._mid_ema.cpu().numpy()))
+        (ref, ema_l), (again, ema_a) = refs
+        st = _step_vs_loop(g, ref, ema_g, ema_l,
+                           2 * tr.cfg.lr * adam_bound(1, b1, start=start + i))
+        st["loop_vs_loop"] = _step_vs_loop(again, ref, ema_a, ema_l, None)
+        graph["steps"].append(st)
+        del g, ref, again, refs, before
+        restore(tr, ahead)
+        del ahead
+        if on_cuda:
+            torch.cuda.reset_peak_memory_stats()
+    tr.cfg = dataclasses.replace(tr.cfg, fused_epoch=True)
+    # the graph step's own state back into the carry, so that the
+    # profiled step below is a replay alone
+    tr._adopt_carry()
+    graph["params"] = _whole_params(tr)
+    coll = tr._graph_coll
+    out = {
+        "route": dict(coll.routes),
+        "messages": {str(n): c for n, c in coll.shared["data"].sizes.items()},
+        "executions": (coll.shared["data"].executions() if on_cuda
+                       else None),
+        "server_spread": server_spread(tr, mesh),
+        "steps": graph["steps"],
+        "first": _step_vs_loop(
+            {"losses": graph["losses"][0], "leaves": {}},
+            {"losses": loop["losses"][0], "leaves": {}},
+            graph["ema"], loop["ema"], None),
+        "params": max(float((graph["params"][p] - loop["params"][p])
+                            .abs().max()) for p in loop["params"]),
+        "params_tol": 2 * tr.cfg.lr * adam_bound(
+            MESH_FUSED_STEPS, b1, start=start),
+        "gloo_calls_after_warm_up": graph["gloo_calls_after_warm_up"],
+        "step_s": {"graph": graph["step_s"], "loop": loop["step_s"]},
+        "calls": {"graph": dict(graph["calls"]), "loop": loop["calls"]},
+        "host_launches": sa.launches,
+        "finite": all(math.isfinite(v) for r in (graph, loop)
+                      for m in r["losses"] for v in m.values())}
+    for k in ("loss_rel", "ema_rel", "moment_rel"):
+        out[k] = max(st[k] for st in graph["steps"])
+    out["bit_equal_steps"] = sum(
+        st["loss_rel"] == st["ema_rel"] == st["moment_rel"] == st["params"]
+        == 0.0 for st in graph["steps"])
+    if on_cuda:
+        pool = tr._graph_pool
+        del pool.warm_up
+        out["capture_s"] = pool.capture_s
+        out["pool_bytes"] = pool.pool_bytes
+        out["peak_bytes"] = graph["peak_bytes"]
+        # one replayed step profiled on the mesh's first rank (the
+        # others run it unprofiled)
+        if mesh.get_local_rank("data") == 0:
+            prof = device_profile(lambda: tr.train_steps(1))
+            out["profile"] = {k: prof[k] for k in (
+                "wall_s", "busy_share", "kernels", "host_launches", "top")}
+        else:
+            tr.train_steps(1)
+    tr._drop_graphs()
+    tr.cfg = dataclasses.replace(tr.cfg, fused_epoch=False)
+    return out
+
+
+def _sar_input(size: int, q: int, k: int, dev):
+    """Rank q's partial for call k, drawn on the card from a seed of its
+    own (so that every rank can draw every rank's)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(
+        1_000_003 * k + 7919 * q + size)
+    return torch.randn(size, generator=g, device=dev) * (1.0 + q)
+
+
+def check_shared_allreduce(mesh, messages: dict, device) -> dict:
+    """The shared all-reduce kernel alone on ``mesh``'s ranks, which share
+    the card, at the sharded step's message sizes (``step_messages``):
+    eager, then a graph of one call replayed SAR_REPLAYS times with
+    fresh inputs copied in before each replay, every result equal to
+    the plain rank-order sum bit for bit (eager: ``plain_all_reduce``
+    over gloo; replays: the ranks' inputs drawn again on each rank and
+    summed in rank order), the eager result within SAR_GLOO_RTOL of
+    gloo's all_reduce, the error word 0. Times (µs per call, ranks
+    started together): eager calls, replays of a graph of SAR_TIMED
+    calls, gloo's all_reduce and the plain version on the same message,
+    beside the byte bound (each rank's partial read and its sum
+    written, n x floats x 4 B each way, at the card's HBM rate)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import shared_allreduce as sa
+    from repro_torch.launch import mesh as M
+    dev = M.rank_device(device)
+    group = mesh.get_group("data")
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    sar = sa.SharedAllReduce(group, dev)
+    stream = torch.cuda.Stream(dev)
+
+    def capture(body):
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=stream):
+            body()
+        torch.cuda.synchronize(dev)
+        return g
+
+    def timed(fn, reps):
+        dist.barrier(group=group)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    out = {}
+    # eager calls first, the largest message first: they size the
+    # buffers, which a capture may not grow
+    for name, size in sorted(messages.items(), key=lambda kv: -kv[1]):
+        x = _sar_input(size, rank, 0, dev)
+        got = sar.all_reduce(x.clone())
+        plain = sa.plain_all_reduce(x.clone(), group)
+        ref = x.clone()
+        dist.all_reduce(ref, group=group)
+        mag = sa.plain_all_reduce(x.abs(), group)
+        rec = {"floats": size, "eager_bits": bool(torch.equal(got, plain)),
+               "gloo_rel": float(((got - ref).abs() / mag).max()),
+               "max_abs_err": float((got - plain).abs().max())}
+        inp, buf = x.clone(), torch.empty_like(x)
+        one = capture(lambda: sar.all_reduce(buf.copy_(inp)))
+        bits = True
+        for k in range(1, SAR_REPLAYS + 1):
+            inp.copy_(_sar_input(size, rank, k, dev))
+            one.replay()
+            want = sa.rank_order_sum([_sar_input(size, q, k, dev)
+                                      for q in range(n)])
+            bits = bits and bool(torch.equal(buf, want))
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     float((buf - want).abs().max()))
+        rec.update(replays=SAR_REPLAYS, replayed_bits=bits)
+        z = torch.zeros_like(x)               # sums of zeros stay zeros
+        many = capture(lambda: [sar.all_reduce(z)
+                                for _ in range(SAR_TIMED)])
+        rec["eager_us"] = timed(lambda: sar.all_reduce(z), SAR_TIMED)
+        rec["replayed_us"] = timed(many.replay, 3) / SAR_TIMED
+        rec["gloo_us"] = timed(lambda: dist.all_reduce(z, group=group),
+                               SAR_TIMED)
+        rec["plain_us"] = timed(lambda: sa.plain_all_reduce(z, group),
+                                SAR_TIMED)
+        rec["bound_us"] = 2 * n * size * 4 / M.HBM_BW * 1e6
+        del one, many
+        out[name] = rec
+    out["error_word"] = [int(w) for w in sar.error.tolist()]
+    out["ranks"] = n
+    sar.release()
     return out
 
 
@@ -3851,6 +4215,84 @@ def _mesh_rank(cuts, device: str, sz: dict) -> dict:
     return out
 
 
+def shared_allreduce_row(mesh: dict) -> dict:
+    """The shared all-reduce's row of the ``kernels`` line: its runs on
+    the sharded fused epoch (the device's count, rank 0 of the 2-rank
+    mesh; per step on 2 and 4 ranks), its times at the step's largest
+    message on 2 ranks, gloo's all_reduce as the library call, and every
+    message on both meshes beside."""
+    per = {n: mesh["population"][str(n)][0] for n in MESH_CHUNK_RANKS}
+    two = per[MESH_CHUNK_RANKS[0]]["shared_allreduce"]
+    main = max((r for r in two.values() if isinstance(r, dict)),
+               key=lambda r: r["floats"])
+    return {
+        "name": "shared_allreduce", "route": "cuda",
+        "source": "src/repro_torch/csrc/shared_allreduce.cu",
+        "replaces": "src/repro/core/huscf.py:229 (no Pallas kernel: the "
+                    "psum XLA puts inside make_epoch_fn's scan)",
+        "launches": per[MESH_CHUNK_RANKS[0]]["fused"]["executions"],
+        "launches_per_step": {
+            str(n): p["fused"]["executions"] / MESH_FUSED_STEPS
+            for n, p in per.items()},
+        "max_abs_err": max(r["max_abs_err"] for p in per.values()
+                           for r in p["shared_allreduce"].values()
+                           if isinstance(r, dict)),
+        "ms": main["replayed_us"] / 1e3, "eager_ms": main["eager_us"] / 1e3,
+        "plain_ms": main["plain_us"] / 1e3,
+        "bound_ms": main["bound_us"] / 1e3, "bound_by": "bytes",
+        "library_ms": main["gloo_us"] / 1e3,
+        "shape": f"{two['ranks']} ranks x {main['floats']} floats",
+        "messages": {str(n): p["shared_allreduce"] for n, p in per.items()}}
+
+
+def _fused_faults(p: dict, device: str) -> list:
+    """What a rank's sharded fused epoch and shared all-reduce checks
+    (``check_mesh_fused``, ``check_shared_allreduce``) got wrong."""
+    bad = []
+    f = p["fused"]
+    route = "kernel" if device == "cuda" else "plain"
+    steps = MESH_FUSED_STEPS
+    # the card counts the kernel's runs on the device (replays launch no
+    # Python); the CPU route runs every call from the host
+    per_step = (f["executions"] if device == "cuda"
+                else sum(f["messages"].values())) / steps
+    if f["route"] != {"data": route} or per_step != 57 or not f["finite"]:
+        bad.append(f"fused route {f['route']}, {per_step} all-reduces per "
+                   f"step, finite {f['finite']}")
+    for i, st in enumerate(f["steps"]):
+        if not (st["loss_rel"] <= MESH_STEP_RTOL
+                and st["ema_rel"] <= MESH_STEP_RTOL
+                and st["moment_rel"] <= MESH_MOMENT_RTOL
+                and st["params"] <= st["params_tol"]):
+            bad.append(f"fused step {i + 1} vs a loop step from its state: "
+                       f"{st}")
+    if not (f["first"]["loss_rel"] <= MESH_STEP_RTOL
+            and f["first"]["ema_rel"] <= MESH_STEP_RTOL
+            and f["params"] <= f["params_tol"]):
+        bad.append(f"fused epoch vs the gloo loop's {steps} steps: first "
+                   f"step {f['first']}, params {f['params']} (tol "
+                   f"{f['params_tol']})")
+    if f["server_spread"] != 0.0:
+        bad.append(f"fused: server spread {f['server_spread']}")
+    if device == "cuda":
+        if f["gloo_calls_after_warm_up"] != 0:
+            bad.append(f"fused: {f['gloo_calls_after_warm_up']} gloo calls "
+                       "after the warm-up")
+        if f["host_launches"] != 2 * 57:
+            bad.append(f"shared all-reduce: {f['host_launches']} host "
+                       f"launches (warm-up and capture: {2 * 57})")
+        sar = p["shared_allreduce"]
+        if any(w != 0 for w in sar["error_word"]):
+            bad.append(f"shared all-reduce error word {sar['error_word']}")
+        for name, r in sar.items():
+            if isinstance(r, dict) and not (
+                    r["eager_bits"] and r["replayed_bits"]
+                    and r["replays"] >= 100
+                    and r["gloo_rel"] <= SAR_GLOO_RTOL):
+                bad.append(f"shared all-reduce {name}: {r}")
+    return bad
+
+
 def run_mesh(cuts, device: str = "cuda", sz: dict = None) -> dict:
     """Phase 4f: ``MESH_WORLD`` ranks on the one card (gloo: they share
     it) through ``launch.mesh.run_ranks``; every check of the ranks'
@@ -3916,9 +4358,8 @@ def run_mesh(cuts, device: str = "cuda", sz: dict = None) -> dict:
             if not p["finite"] or p["server_spread"] != 0.0:
                 bad.append(f"finite {p['finite']}, server spread "
                            f"{p['server_spread']}")
-            if n > 1 and not (p.get("fused_guard") and
-                              "fused_epoch=False" in p["fused_guard"]):
-                bad.append(f"fused-epoch guard {p.get('fused_guard')}")
+            if n > 1:
+                bad += _fused_faults(p, device)
             vs = p.get("vs_1rank")
             if vs is not None and not (
                     vs["first_loss_rel"] <= MESH_STEP_RTOL
@@ -3943,6 +4384,41 @@ def run_mesh(cuts, device: str = "cuda", sz: dict = None) -> dict:
         if any(p["step"] != "replicated" for p in slice_[str(n)]):
             raise AssertionError(f"{n}-rank slice: its groups do not divide, "
                                  "the step must replicate")
+    for n in MESH_CHUNK_RANKS:
+        per = population[str(n)]
+        f = per[0]["fused"]
+        prof = f.get("profile", {})
+        log(f"mesh {n} ranks sharded fused epoch ({f['route']['data']}): s "
+            f"per step graph {[round(x, 4) for x in f['step_s']['graph']]} "
+            f"loop {[round(x, 4) for x in f['step_s']['loop']]}, capture "
+            f"{f.get('capture_s')} s, per replayed step "
+            f"{prof.get('kernels')} kernels and {prof.get('host_launches')} "
+            f"host launches (rank 0), peak "
+            f"{[p['fused'].get('peak_bytes') for p in per]} B; each step vs "
+            f"a loop step from its state (largest over steps): losses "
+            f"{f['loss_rel']:.2e}, EMA {f['ema_rel']:.2e}, first moments "
+            f"{f['moment_rel']:.2e} (two loop steps: "
+            f"{max(st['loop_vs_loop']['moment_rel'] for st in f['steps']):.2e}"
+            f"), bit-equal in {f['bit_equal_steps']} of "
+            f"{len(f['steps'])} steps; "
+            f"epoch vs the gloo loop's: first losses "
+            f"{f['first']['loss_rel']:.2e}, EMA {f['first']['ema_rel']:.2e}, "
+            f"params {f['params']:.2e} (tol "
+            f"{f['params_tol']:.2e}); gloo calls after the warm-up "
+            f"{f['gloo_calls_after_warm_up']}")
+        for name, r in sorted(per[0].get("shared_allreduce", {}).items()):
+            if isinstance(r, dict):
+                log(f"mesh {n} ranks shared all-reduce {name} ({r['floats']} "
+                    f"floats): eager {r['eager_us']:.1f} us, replayed "
+                    f"{r['replayed_us']:.1f} us, gloo {r['gloo_us']:.1f} us, "
+                    f"plain {r['plain_us']:.1f} us, bound "
+                    f"{r['bound_us']:.3f} us; bit-equal eager "
+                    f"{r['eager_bits']}, {r['replays']} replays "
+                    f"{r['replayed_bits']}; gloo rel {r['gloo_rel']:.1e}")
+    gpus = torch.cuda.device_count() if device == "cuda" else 0
+    nccl = ("not run: 1 GPU" if gpus == 1 else f"not run: {gpus} GPUs"
+            if gpus < 2 else "not run: the phase shares one card")
+    log(f"mesh NCCL fused epoch (one GPU per rank): {nccl}")
     serve = {}
     for n in MESH_CHUNK_RANKS:
         per = [r["serve"][str(n)] for r in ranks if str(n) in r["serve"]]
@@ -3974,7 +4450,7 @@ def run_mesh(cuts, device: str = "cuda", sz: dict = None) -> dict:
     return {"world": MESH_WORLD, "backend": backend, "backend_reason": reason,
             "card_hbm_bytes": total, "hbm_constant": M.CARD_HBM_BYTES,
             "phase_s": phase_s, "slice": slice_, "population": population,
-            "serve": serve,
+            "serve": serve, "nccl_fused_epoch": nccl,
             "peak_bytes_per_rank": [r["peak_bytes"] for r in ranks],
             "k1_launches": {
                 "slice": {n: [[rd["k1_launches"] for rd in p["rounds"]]
@@ -4124,6 +4600,7 @@ def main() -> int:
                                              "bound_ms", "bound_by",
                                              "library_ms", "shape")},
             **{where: t[where] for where in t if where != "lm"}})
+    kernels.append(shared_allreduce_row(mesh))
     timing = time_slice(tr)
     timing["profile"] = profile_epoch(tr)
     timing.update({"slice_s": slice_s,

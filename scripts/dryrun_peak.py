@@ -17,6 +17,14 @@ allocated). The composition is taken at the last time the live bytes
 rose 0.5 % above the previous snapshot, so it is within 0.5 % of the
 peak. It prints the record's FLOPs, collectives and memory, the groups
 (count, bytes each, bytes in all), and one JSON line.
+
+``--by-site`` also attributes every FLOP and every collective to its
+site: the innermost frame of ``repro_torch`` outside the dry run's own
+module (file:line and function), the last DTensor operation dispatched
+before it (whose redistributions issue the collectives) and the local
+operation. The sites go into the JSON line under ``sites``; two
+records of one pair traced under two torch versions differ where their
+DTensor rules do (diff their ``sites``).
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src"))
 
 import torch  # noqa: E402
+from torch.distributed.tensor import DTensor  # noqa: E402
 
 from repro_torch.launch import dryrun as D  # noqa: E402
 
@@ -38,11 +47,15 @@ class PeakCounter(D.OpCounter):
     """``OpCounter`` that remembers which operation made each storage
     and what was alive near the peak."""
 
-    def __init__(self):
+    def __init__(self, by_site: bool = False):
         super().__init__()
         self.made = {}
         self.op = "stand-in"        # a replayed call's fresh results
         self.snap, self.snap_bytes = {}, 0
+        self.by_site = by_site
+        self.sites = collections.defaultdict(collections.Counter)
+        self.dt_op = "-"            # the last DTensor operation dispatched
+        self.depth = 0
 
     def track(self, tree):
         self.op = "argument"
@@ -50,11 +63,31 @@ class PeakCounter(D.OpCounter):
         self.op = "stand-in"
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        outer, self.op = self.op, func._overloadpacket.__name__
+        name = func._overloadpacket.__name__
+        if self.by_site and any(isinstance(t, DTensor) for t in
+                                D._tensors((args, kwargs or {}))):
+            self.dt_op = name
+        outer, self.op = self.op, name
+        before = (self.flops, dict(self.collectives), dict(self.calls))
+        self.depth += 1
         try:
             return super().__torch_dispatch__(func, types, args, kwargs)
         finally:
             self.op = outer
+            self.depth -= 1
+            if self.by_site and self.depth == 0:
+                self._attribute(name, *before)
+
+    def _attribute(self, name, flops, coll, calls):
+        """The FLOPs and collectives of one outermost local call, added
+        to its site."""
+        site = self.sites[(_frame(), self.dt_op, name)]
+        if self.flops != flops:
+            site["flops"] += self.flops - flops
+        for kind, nb in self.collectives.items():
+            if nb != coll.get(kind, 0.0):
+                site[kind] += nb - coll.get(kind, 0.0)
+                site[kind + " calls"] += self.calls[kind] - calls.get(kind, 0)
 
     def _track(self, t):
         key = t.untyped_storage()._cdata
@@ -70,6 +103,19 @@ class PeakCounter(D.OpCounter):
         self.made.pop(key, None)
 
 
+def _frame() -> str:
+    """The innermost frame of ``repro_torch`` outside ``launch/dryrun.py``
+    (file:line function)."""
+    f = sys._getframe(2)
+    while f is not None:
+        path = f.f_code.co_filename
+        if "repro_torch" in path and not path.endswith("dryrun.py"):
+            return (f"{path.split('repro_torch/')[-1]}:{f.f_lineno} "
+                    f"{f.f_code.co_name}")
+        f = f.f_back
+    return "-"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
@@ -79,6 +125,8 @@ def main(argv=None):
                     help="the mesh's device type (cuda, or cpu)")
     ap.add_argument("--dtensor-rules", action="store_true")
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--by-site", action="store_true",
+                    help="attribute FLOPs and collectives to their sites")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
     if args.dtensor_rules:
@@ -89,7 +137,7 @@ def main(argv=None):
     lowered, meta = D.build_lowered(args.arch, args.shape,
                                     multi_pod=args.multi_pod,
                                     device=args.device)
-    counter = PeakCounter()
+    counter = PeakCounter(by_site=args.by_site)
     out, _ = lowered.run(counter)
     groups = collections.defaultdict(lambda: [0, 0])
     for nbytes, made in counter.snap.values():
@@ -106,6 +154,12 @@ def main(argv=None):
     for (op, shape, dtype), (n, nbytes) in top:
         print(f"  {n:5d} x {nbytes / n / 2**20:10.1f} MiB = "
               f"{nbytes / 2**30:8.2f} GiB  {op} {list(shape)} {dtype}")
+    sites = [{"site": k[0], "dtensor_op": k[1], "op": k[2], **v}
+             for k, v in counter.sites.items() if v]
+    for s in sorted(sites, key=lambda s: -sum(
+            v for k, v in s.items() if k not in ("flops",) and
+            isinstance(v, float)))[:args.top]:
+        print("  site", json.dumps(s))
     print(json.dumps({
         "arch": args.arch, "shape": args.shape,
         "multi_pod": args.multi_pod, "dtensor_rules": args.dtensor_rules,
@@ -114,7 +168,8 @@ def main(argv=None):
         "collectives": counter.collectives,
         "groups": [{"op": op, "shape": list(shape), "dtype": dtype,
                     "count": n, "bytes": nbytes}
-                   for (op, shape, dtype), (n, nbytes) in top]}))
+                   for (op, shape, dtype), (n, nbytes) in top],
+        "torch": torch.__version__, "sites": sites}))
     del out
     D.stop_fake_group()
 

@@ -34,7 +34,9 @@ if __name__ == "__main__":
             continue
         marks = [k for k in getattr(fn, "pytestmark", [])
                  if k.name == "parametrize"]
-        for args in ([(v,) for v in marks[0].args[1]] if marks else [()]):
+        several = bool(marks) and "," in marks[0].args[0]
+        for args in ([tuple(v) if several else (v,)
+                      for v in marks[0].args[1]] if marks else [()]):
             fn(outs, *args)
             checks += 1
     worst = max(max(o[k] for k in m.VALUES) for o in outs)

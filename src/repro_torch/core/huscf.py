@@ -59,9 +59,15 @@ the reduced sums. Rounds run on the rank's own rows
 EMA, and the first rank's labels, weights, k and cohort are broadcast.
 ``generate``, ``whole_state``/``load_whole_state``, checkpoints and
 every regroup gather the whole state, run the unsharded code and keep
-the rows of the (new) grouping (``_whole``). A sharded step has
-collectives inside it, which a CUDA graph cannot capture through gloo,
-so on the card it needs ``fused_epoch=False``.
+the rows of the (new) grouping (``_whole``). A sharded step's fused
+epoch runs its all-reduces inside ``launch.mesh.graph_collectives``:
+between ranks that share one card through the shared all-reduce kernel
+(``kernels.shared_allreduce``), which the epoch's CUDA graphs capture;
+with one GPU per rank through NCCL, captured likewise; on the CPU as
+the plain rank-order sum. Gloo ranks on several cards have no such
+route, and their fused epoch raises (``fused_epoch=False`` trains
+them). The per-step loop, rounds and checkpoints keep the backend's own
+collectives.
 
 When a group does not divide, the step is replicated, as the
 reference's ``sanitize`` replicates what it cannot split: every rank
@@ -105,6 +111,7 @@ from repro_torch.core.splitting import (ProfileGroup, client_owned_layers,
 from repro_torch.data.partition import ClientSpec
 from repro_torch.data.pipeline import (sample_batch, stage_clients,
                                        step_client_axes)
+from repro_torch.kernels.shared_allreduce import check_error
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import gan
 from repro_torch.models.gan import (DISC_LAYER_DEFS, DISC_MIDDLE_FEATURES,
@@ -674,6 +681,9 @@ class HuSCFTrainer:
                         for k in ("loss_d", "loss_g")}
         self._carry: Optional[List] = None
         self._carry_inputs: Tuple = ()
+        # a sharded step's fused-epoch collectives (made at its first
+        # fused epoch, released with the graphs)
+        self._graph_coll: Optional[mesh_mod.GraphCollectives] = None
         self._sizes_dev = torch.as_tensor(self.sizes, dtype=torch.float32,
                                           device=self.device)
         self._fed_plans: Dict = {}
@@ -904,12 +914,18 @@ class HuSCFTrainer:
 
     def _drop_graphs(self) -> None:
         """Everything captured on the old carry or grouping goes: the
-        epoch functions with their graphs, the pool and the warm-up (the
-        reference's ``_epoch_fns.clear()``)."""
+        epoch functions with their graphs, the pool, the warm-up and a
+        sharded step's collective buffers (the reference's
+        ``_epoch_fns.clear()``)."""
         self._epoch_fns.clear()
         self._carry = None
         if self._graph_pool is not None:
             self._graph_pool.clear()
+        if self._graph_coll is not None:
+            # the graphs baked the collectives' buffers in (a collective:
+            # every rank of the mesh drops its graphs together)
+            self._graph_coll.release()
+            self._graph_coll = None
 
     def _adopt_carry(self) -> None:
         """Make the trainer's own tensors the state's leaves and the EMA,
@@ -949,20 +965,20 @@ class HuSCFTrainer:
             raise ValueError("a batch_source is a host callable and cannot "
                              "be replayed in a CUDA graph: pass "
                              "fused_epoch=False to train from it on the card")
-        if self._graph_pool is not None and self.step_sharded:
-            raise ValueError(
-                f"a client-sharded step on {self.fed_mesh.size()} ranks "
-                "runs collectives inside it, which gloo cannot run in a "
-                "captured CUDA graph (and NCCL refuses two ranks on one "
-                "GPU): pass fused_epoch=False (the launcher's --per-step) "
-                "to train it on the card")
         self._adopt_carry()
+        if self.step_sharded and self._graph_coll is None:
+            # a collective: every rank of the mesh is in this epoch;
+            # gloo ranks on several cards raise here
+            self._graph_coll = mesh_mod.GraphCollectives(
+                self.fed_mesh, self._shard_axes, self.device)
         fn = self._epoch_fns.get(n_steps)
         if fn is None:
             fn = self._epoch_fns[n_steps] = self._build_epoch(n_steps)
         self._ema_flag.fill_(self._ema_init)
-        fn(self.state, self._train_gen, self._mid_ema, self._ema_flag,
-           self._losses)
+        with mesh_mod.graph_collectives(
+                self._graph_coll if self.step_sharded else None):
+            fn(self.state, self._train_gen, self._mid_ema, self._ema_flag,
+               self._losses)
         self._ema_init = True
         self.state["step"] += n_steps
         return self._losses
@@ -971,9 +987,18 @@ class HuSCFTrainer:
     def train_steps(self, n_steps: int) -> Dict[str, float]:
         if self.cfg.fused_epoch:
             losses = self._fused_epoch(n_steps)
-            # the epoch's one readback
-            return dict(zip(losses, torch.stack(list(losses.values()))
-                            .tolist()))
+            back = torch.stack(list(losses.values()))
+            words = (None if self._graph_coll is None
+                     else self._graph_coll.error_words())
+            if words is None:
+                # the epoch's one readback
+                return dict(zip(losses, back.tolist()))
+            # the losses and the shared all-reduce's error words, in one
+            # readback (float64 holds the int32 words exactly)
+            back = torch.cat([back.double(), words.double()]).tolist()
+            for i in range(len(losses), len(back), 5):
+                check_error(back[i:i + 5])
+            return dict(zip(losses, back))
         metrics = {}
         for _ in range(n_steps):
             self.state, metrics, mids = self._step(

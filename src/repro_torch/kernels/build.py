@@ -27,20 +27,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# the C signature of every kernel library: (function name, argtypes)
+_ULL = ctypes.c_ulonglong
+# the C entry points of every kernel library, {function name: argtypes};
+# each returns a CUDA error code (0: success)
 SIGNATURES = {
-    "clustered_agg": ("clustered_agg_f32",
-                      [_P, _P, _P, _I, _I, _LL, _LL, _LL, _I, _P]),
-    "kmeans_assign": ("kmeans_assign_f32",
-                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "mem_attention": ("mem_attention_f32",
-                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "flash_decode": ("flash_decode_f32",
+    "clustered_agg": {"clustered_agg_f32":
+                      [_P, _P, _P, _I, _I, _LL, _LL, _LL, _I, _P]},
+    "kmeans_assign": {"kmeans_assign_f32":
+                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "mem_attention": {"mem_attention_f32":
+                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "flash_decode": {"flash_decode_f32":
                      [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _I, _P]),
+                      _I, _P]},
+    "shared_allreduce": {
+        "sar_alloc": [_I, _LL, _P],
+        "sar_free": [_I, _P],
+        "sar_ipc_handle": [_P, _P],
+        "sar_ipc_open": [_I, _P, _P],
+        "sar_ipc_close": [_I, _P],
+        "sar_all_reduce_f32": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _LL,
+                               _I, _ULL, _I, _P]},
 }
 
-_loaded: Dict[str, object] = {}
+_loaded: Dict[str, Dict[str, object]] = {}
 _lock = threading.Lock()
 
 # (device index, stream) -> (int32 ticket counters, float32 workspace) of
@@ -114,17 +124,27 @@ def split_scratch(device: torch.device, stream: int, n_counters: int,
     return cnt, ws
 
 
-def kernel(name: str):
-    """The C entry point of kernel library ``name``, built if needed."""
+def library(name: str) -> Dict[str, object]:
+    """The C entry points of kernel library ``name``, by function name,
+    built if needed."""
     with _lock:
-        fn = _loaded.get(name)
-        if fn is None:
+        fns = _loaded.get(name)
+        if fns is None:
             path = library_path(name)
             if not path.exists():
                 build([name])
-            fname, argtypes = SIGNATURES[name]
-            fn = getattr(ctypes.CDLL(str(path)), fname)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _loaded[name] = fn
-        return fn
+            lib = ctypes.CDLL(str(path))
+            fns = {}
+            for fname, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fname)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[fname] = fn
+            _loaded[name] = fns
+        return fns
+
+
+def kernel(name: str):
+    """The C entry point of kernel library ``name``, which has one."""
+    fn, = library(name).values()
+    return fn

@@ -27,6 +27,17 @@ round) and ``gather_state`` / ``keep_rows``, which turn a rank's state
 into the whole state and back. Each is a no-op, bit for bit, without a
 mesh or on a 1-rank mesh; ``calls`` counts what each issues.
 
+Inside a client-sharded step's fused epoch (``graph_collectives``, which
+the trainer enters around its warm-up, captures and replays) the
+all-reduces take the route ``graph_route`` picks: between ranks that
+share one card the shared all-reduce kernel
+(``kernels.shared_allreduce``: no host, capturable); with one GPU per
+rank NCCL's ``all_reduce``, which a CUDA graph captures; on the CPU the
+plain rank-order sum (``plain_all_reduce``), the card's arithmetic.
+Gloo ranks on several cards have no capturable route and raise. Outside
+such an epoch (the per-step loop, rounds, checkpoints) every call goes
+to the backend's own ``all_reduce``.
+
 ``make_federation_mesh(n)`` is the 1-D ``("data",)`` mesh over the
 first ``n`` ranks of the process group. In a process without one, a
 1-rank mesh starts a world of one rank on an in-process store, so that
@@ -37,6 +48,7 @@ power limit (NVIDIA's data sheet, dense rates).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import shutil
@@ -51,6 +63,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels.shared_allreduce import SharedAllReduce
 from repro_torch.sharding.policy import data_axes, row_block
 
 # one NVIDIA H100 SXM5 80GB at a 700 W power limit, for the roofline
@@ -63,8 +76,9 @@ NVLINK_BW = 450e9               # NVLink 4 bytes/s per direction, per card
 CARD_HBM_BYTES = 80 * 1024 ** 3
 
 # collectives this process has issued, by kind ("all_reduce",
-# "all_gather", "broadcast"): one per call of the backend, counted where
-# it is called; chip_smoke.py resets and reads it around a step
+# "all_gather", "broadcast", and "shared_all_reduce" for the shared
+# all-reduce kernel): one per call, counted where it is called;
+# chip_smoke.py resets and reads it around a step
 calls: Counter = Counter()
 
 # the production meshes: one HGX board's 8 cards share an NVLink domain,
@@ -183,7 +197,8 @@ def all_reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     ``psum``), one ``all_reduce`` per axis; a no-op without a mesh or on
     a 1-rank mesh. A row-strided ``x`` (rows padded past its width, as
     the federation plan's buffers and K1's outputs are) is reduced with
-    its pad columns, in one piece."""
+    its pad columns, in one piece. Inside ``graph_collectives`` for this
+    mesh the call takes that epoch's route."""
     if _trivial(mesh):
         return x
     whole = x
@@ -192,10 +207,110 @@ def all_reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
             raise ValueError(f"all_reduce_sum takes contiguous rows, got "
                              f"strides {x.stride()} at {tuple(x.shape)}")
         whole = x.as_strided((x.shape[0], x.stride(0)), (x.stride(0), 1))
+    graph = _graph if _graph is not None and _graph.serves(mesh) else None
     for ax in _axes(axes):
+        if graph is not None:
+            graph.all_reduce(whole, ax)
+            continue
         dist.all_reduce(whole, op=dist.ReduceOp.SUM, group=mesh.get_group(ax))
         calls["all_reduce"] += 1
     return x
+
+
+# ---------------------------------------------------------------------------
+# the collectives of a fused epoch
+# ---------------------------------------------------------------------------
+
+def graph_route(backend: str, devices: Sequence[Optional[int]]) -> str:
+    """How a client-sharded step's all-reduces run inside a fused epoch,
+    from the group's backend and each rank's CUDA device index (None: a
+    rank on the CPU): ``"plain"`` on the CPU (the rank-order sum over
+    gloo: the card's arithmetic, run eagerly), ``"kernel"`` for gloo
+    ranks that share one card (the shared all-reduce kernel),
+    ``"nccl"`` with one GPU per rank (NCCL's all-reduce, captured in the
+    graph). Gloo ranks on several cards raise: gloo stages each call
+    through the host, which a CUDA graph cannot capture."""
+    on_cpu = [d is None for d in devices]
+    if all(on_cpu):
+        return "plain"
+    if any(on_cpu):
+        raise ValueError("a mesh whose ranks are partly on the CPU and "
+                         "partly on GPUs has no fused-epoch route")
+    if backend == "nccl":
+        return "nccl"
+    if backend == "gloo" and len(set(devices)) == 1:
+        return "kernel"
+    raise ValueError(
+        f"a client-sharded step on {backend} ranks spread over "
+        f"{len(set(devices))} GPUs runs its all-reduces through the host, "
+        "which a CUDA graph cannot capture: pass fused_epoch=False (the "
+        "launcher's --per-step) to train it on the card")
+
+
+class GraphCollectives:
+    """The all-reduces of a client-sharded step's fused epoch on ``mesh``
+    along ``axes``, on this rank's ``device``: the route of each axis's
+    group (``graph_route``; every rank of the mesh builds it: the ranks'
+    devices are gathered), and for the kernel and plain routes the
+    group's ``SharedAllReduce``. ``release()`` (a collective) frees the
+    kernel's buffers; the trainer calls it when it drops its graphs."""
+
+    def __init__(self, mesh, axes, device):
+        dev = torch.device(device)
+        self.key = mesh_key(mesh)
+        self.groups = {ax: mesh.get_group(ax) for ax in _axes(axes)}
+        self.routes, self.shared = {}, {}
+        for ax, group in self.groups.items():
+            where: List[Optional[int]] = [None] * dist.get_world_size(group)
+            dist.all_gather_object(
+                where, torch.cuda.current_device()
+                if dev.type == "cuda" else None, group=group)
+            self.routes[ax] = graph_route(str(dist.get_backend(group)),
+                                          where)
+            if self.routes[ax] != "nccl":
+                self.shared[ax] = SharedAllReduce(group, dev)
+
+    def serves(self, mesh) -> bool:
+        return mesh_key(mesh) == self.key
+
+    def all_reduce(self, x: torch.Tensor, ax: str) -> None:
+        route = self.routes[ax]
+        if route == "nccl":
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.groups[ax])
+            calls["all_reduce"] += 1
+        else:
+            self.shared[ax].all_reduce(x)
+            calls["shared_all_reduce" if route == "kernel"
+                  else "all_gather"] += 1
+
+    def error_words(self) -> Optional[torch.Tensor]:
+        """The kernels' error words, one device tensor (None without a
+        kernel route)."""
+        words = [self.shared[ax].error for ax, r in self.routes.items()
+                 if r == "kernel"]
+        return torch.cat(words) if words else None
+
+    def release(self) -> None:
+        for sar in self.shared.values():
+            sar.release()
+
+
+# the collectives of the fused epoch running now (graph_collectives): a
+# module variable, not a context variable, because autograd runs the
+# backward's reductions (``_ReduceSum.backward``) on a thread of its own
+_graph: Optional[GraphCollectives] = None
+
+
+@contextlib.contextmanager
+def graph_collectives(coll: Optional[GraphCollectives]):
+    """Route ``all_reduce_sum`` on ``coll``'s mesh through ``coll`` while
+    the body runs (None: the backend's own calls)."""
+    global _graph
+    prev, _graph = _graph, coll
+    try:
+        yield coll
+    finally:
+        _graph = prev
 
 
 class _ReduceSum(torch.autograd.Function):

@@ -58,8 +58,14 @@ gathered state). 14 clients on the paper's 7 devices make 7 groups of
       --device cpu --fed-devices 2 --clients 14 --base-size 12 --batch 4 \
       --epochs 2 --federate-every 1
 
-A sharded step runs collectives inside it, which a CUDA graph cannot
-capture through gloo: on the card it needs ``--per-step``.
+A sharded step runs all-reduces inside it, and its fused epochs (the
+default) capture them in the epoch's CUDA graphs: with one GPU per rank
+(NCCL) the graphs capture NCCL's all-reduce; ranks that share a card
+(``launch.mesh.run_ranks`` with more ranks than GPUs, as ``chip_smoke.py``
+phase 4f runs them) sum through the shared all-reduce kernel
+(``kernels.shared_allreduce``). ``--per-step`` trains it on the loop
+with gloo's or NCCL's own calls; gloo ranks spread over several cards
+need it.
 
 ``train_lm`` takes Adam with a warm-up cosine schedule (10 warm-up
 steps, ``max(steps, 20)`` in all) and global-norm clipping at 1.0 on

@@ -15,7 +15,8 @@ recurrence; a fused chunkwise kernel is later work. On DTensors (a mesh
 run) the loops run on each rank's own batch rows and heads or hidden
 units (``dtensor_ops.local_recurrence``); the projections into them
 stay DTensor operations, and the mLSTM's head-wise output projection
-contracts each rank's shards (``dtensor_ops.heads_out``).
+and the sLSTM's output gate contract each rank's shards
+(``dtensor_ops.heads_out``, ``dtensor_ops.rows_in``).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import nn
 from repro_torch.sharding.dtensor_ops import heads_out, \
-    local_recurrence, pad
+    local_recurrence, pad, rows_in
 
 RG_LRU_C = 8.0
 
@@ -221,7 +222,9 @@ def _slstm_pre(p, x):
     z = torch.tanh(xf @ p["w_z"].float())
     i = torch.clamp(xf @ p["w_i"].float(), -10, 10)
     f = torch.clamp(xf @ p["w_f"].float(), -10, 10)
-    o = torch.sigmoid(xf @ p["w_o"].float())
+    # w_o is split along d_model where the others split d_hidden: its
+    # partial sums go onto z's layout (dtensor_ops.rows_in)
+    o = torch.sigmoid(rows_in(xf, p["w_o"].float(), z))
     return z, i, f, o
 
 

@@ -22,8 +22,10 @@ reference's specs:
   and its own experts (or its slice of ``d_ff``), the partial outputs
   summed over the model axis by one collective;
 * ``local_recurrence``: a per-token recurrence (mLSTM, sLSTM) on each
-  rank's own batch rows and heads or hidden units, and ``heads_out``,
-  the mLSTM's head-wise output projection on each rank's shards.
+  rank's own batch rows and heads or hidden units, ``heads_out``, the
+  mLSTM's head-wise output projection on each rank's shards, and
+  ``rows_in``, the sLSTM's output-gate projection, whose weight is split
+  along its rows, on each rank's shards.
 
 Every DTensor branch is held against the plain path on real values over
 gloo ranks by ``tests/test_torch_dtensor_ops.py``.
@@ -447,6 +449,84 @@ def heads_out(h, w):
                        _DenseGrad.apply(w.to_local(grad_placements=w_grad)))
     return _sum_partials(DTensor.from_local(out, mesh, out_pl,
                                             run_check=False))
+
+
+def _rows_plan(x, w):
+    """(x's, w's and the output's placements) for ``x @ w`` on DTensors
+    ``x [B, S, D]`` and ``w [D, H]``, per mesh dim: rows of ``x`` split
+    with ``w`` whole stay split (the weight's gradient summed over them);
+    ``w`` split along its rows (``D``) with ``x`` whole takes ``x``'s
+    matching slice of ``D``, the products partial sums; both whole stay
+    whole. None for plain tensors, any other layout or an uneven
+    split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if not (_is_dtensor(x) and _is_dtensor(w) and x.ndim == 3
+            and w.ndim == 2 and x.device_mesh == w.device_mesh):
+        return None
+    plan = []
+    for px, pw in zip(x.placements, w.placements):
+        if px == Shard(0) and pw == Replicate():
+            plan.append((px, pw, px))
+        elif px == Replicate() and pw == Shard(0):
+            plan.append((Shard(2), pw, Partial()))
+        elif px == Replicate() and pw == Replicate():
+            plan.append((px, pw, px))
+        else:
+            return None
+    tx, tw, out_pl = zip(*plan)
+    if not (_even(x, tx, x.device_mesh) and _even(w, tw, x.device_mesh)):
+        return None
+    return tx, tw, out_pl
+
+
+def rows_in(x, w, like):
+    """``x @ w`` (``x [B, S, D]``, ``w [D, H]``) whose weight the policy
+    splits along its rows ``D``, as it splits every ``w_o``: the sLSTM's
+    output gate, whose sigmoid needs whole sums. DTensors laid out as
+    ``_rows_plan`` allows contract on each rank's own shards, and the
+    partial sums are reduce-scattered onto ``like``'s split of ``H``
+    (the other gates': their weights split ``H``), one collective;
+    where ``like`` holds ``H`` whole, summed whole. Backward, the
+    gradient is gathered whole along ``H``, and ``x``'s gradient is a
+    partial sum over the ranks that split ``D``, as the other gates'
+    contributions to it are, so adding them needs no collective.
+    DTensor's own rules for the elementwise op after a product of
+    partial sums differ by torch version (one all-reduces to a whole
+    ``[B, S, H]`` on every rank and contracts the weight's gradient
+    whole; another reduce-scatters along the sequence), so the port
+    names the layout. Anything else is the plain product."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    plan = _rows_plan(x, w) if _is_dtensor(like) else None
+    if plan is None:
+        return x @ w
+    tx, _, out_pl = plan            # w is laid out as planned
+    mesh = x.device_mesh
+    target = []
+    for p, q in zip(out_pl, like.placements):
+        if not p.is_partial():
+            target.append(p)
+        elif isinstance(q, Shard) and q.dim == 2:
+            target.append(q)
+        else:
+            target.append(Replicate())
+    if not _even(like, target, mesh):
+        return x @ w
+    # x's slice of D taken from its local tensor, whose gradient (zero
+    # off the slice) is then a partial sum over the ranks that split D,
+    # as the other gates' are: their sum needs no collective
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    x_grad = [Partial() if p == Shard(2) else q
+              for p, q in zip(tx, x.placements)]
+    (_, _, n), (_, _, off) = compute_local_shape_and_global_offset(
+        x.shape, mesh, tx)
+    xl = x.to_local(grad_placements=x_grad)[..., off:off + n]
+    w_grad = [Partial() if p == Shard(0) and q == Replicate() else q
+              for p, q in zip(tx, w.placements)]
+    out = torch.matmul(_DenseGrad.apply(xl),
+                       _DenseGrad.apply(w.to_local(grad_placements=w_grad)))
+    out = DTensor.from_local(out, mesh, out_pl, run_check=False)
+    return out.redistribute(mesh, target)
 
 
 def _recurrence_shards(xs):

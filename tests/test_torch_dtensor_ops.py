@@ -28,7 +28,14 @@ difference of the gathered (``full_tensor``) results:
   loss and gradients; the rank-local branch counted in every layer (and
   the mLSTM's head-wise output projection on the ranks' shards), and
   the DTensor operations dispatched inside the expert einsums and the
-  recurrences' steps counted (none).
+  recurrences' steps counted (none);
+* the sLSTM's output-gate projection (``dtensor_ops.rows_in``, its
+  weight split along its rows) alone: value and gradients, and its
+  FLOPs and collectives per rank counted by the dry run's
+  ``OpCounter``, forward and backward, which no torch version's
+  DTensor rules choose (the product and its gradients on each rank's
+  shards: one reduce-scatter forward, one all-gather backward, the
+  input's gradient a partial sum).
 
 Tolerance: 2e-6 of the largest magnitude of the plain result, for
 values and gradients in float32 (the ranks sum partial products in
@@ -417,9 +424,9 @@ def _branches(mesh, out):
                                              activation_sharding,
                                              tree_param_specs)
     policy = ShardingPolicy()
-    taken = {"experts": 0, "recurrence": 0, "heads_out": 0}
+    taken = {"experts": 0, "recurrence": 0, "heads_out": 0, "rows_in": 0}
     expert_shards, recurrence_shards = dt._expert_shards, dt._recurrence_shards
-    heads_plan = dt._heads_plan
+    heads_plan, rows_plan = dt._heads_plan, dt._rows_plan
 
     def counted(key, fn):
         def run(*a):
@@ -434,6 +441,7 @@ def _branches(mesh, out):
     dt._expert_shards = counted("experts", expert_shards)
     dt._recurrence_shards = counted("recurrence", recurrence_shards)
     dt._heads_plan = counted("heads_out", heads_plan)
+    dt._rows_plan = counted("rows_in", rows_plan)
     for (mod, name), fn in orig.items():
         setattr(mod, name, inner["experts" if mod is M
                                  else "recurrence"].wrap(fn))
@@ -452,6 +460,9 @@ def _branches(mesh, out):
                 if kind == "mlstm":
                     out[f"taken/{case}/heads_out"] = float(
                         taken["heads_out"] - before["heads_out"])
+                if kind == "slstm":
+                    out[f"taken/{case}/rows_in"] = float(
+                        taken["rows_in"] - before["rows_in"])
             # the tiny LM: a train loss and every parameter's gradient
             g = torch.Generator().manual_seed(4)
             params = T.init_lm(cfg, g, device="cpu")
@@ -474,10 +485,12 @@ def _branches(mesh, out):
             # a recomputed super-block takes the branch twice per layer
             key = "experts" if case in MOE_CASES else "recurrence"
             out[f"taken/{case}/lm"] = float(taken[key] - before[key])
+            out[f"taken/{case}/lm_rows_in"] = float(taken["rows_in"]
+                                                    - before["rows_in"])
     finally:
         dt._expert_shards, dt._recurrence_shards = (expert_shards,
                                                     recurrence_shards)
-        dt._heads_plan = heads_plan
+        dt._heads_plan, dt._rows_plan = heads_plan, rows_plan
         for (mod, name), fn in orig.items():
             setattr(mod, name, fn)
     for key, c in inner.items():
@@ -490,6 +503,41 @@ def _branches(mesh, out):
     out["inner/control/dtensor_ops"] = float(control.n)
 
 
+def _rows_in(mesh, out):
+    """``dtensor_ops.rows_in`` alone at the tiny xLSTM's widths (d_model
+    32, d_rnn 16): value, gradients, and its counts per rank."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.launch import dryrun as D
+    from repro_torch.sharding import dtensor_ops as dt
+    cfg = _tiny("mlstm_split")
+    g = torch.Generator().manual_seed(5)
+    x, w, like, go = (torch.randn(shape, generator=g) for shape in (
+        (B, S, cfg.d_model), (cfg.d_model, cfg.d_rnn), (B, S, cfg.d_rnn),
+        (B, S, cfg.d_rnn)))
+    dx = distribute_tensor(x, mesh, [Shard(0), Replicate()])
+    dw = distribute_tensor(w, mesh, [Replicate(), Shard(0)])
+    dlike = distribute_tensor(like, mesh, [Shard(0), Shard(2)])
+    dx.requires_grad_(True)
+    dw.requires_grad_(True)
+    counts = {}
+    with D.OpCounter() as c:
+        y = dt.rows_in(dx, dw, dlike)
+    counts["forward"] = (c.flops, dict(c.collectives), dict(c.calls))
+    with D.OpCounter() as c:
+        gx, gw = torch.autograd.grad(
+            y, [dx, dw], distribute_tensor(go, mesh, list(y.placements)))
+    counts["backward"] = (c.flops, dict(c.collectives), dict(c.calls))
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    y0 = x @ w
+    g0 = torch.autograd.grad(y0, [x, w], go)
+    out["rows_in/value"] = _rel(y, y0)
+    out["rows_in/grads"] = _rel([gx, gw], list(g0))
+    out["rows_in/layout"] = (tuple(y.placements) == tuple(dlike.placements)
+                             and gx.placements[1].is_partial())
+    out["rows_in/counts"] = counts
+
+
 def _rank_body():
     from torch.distributed.device_mesh import init_device_mesh
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
@@ -498,6 +546,7 @@ def _rank_body():
     _lm(mesh, out)
     _split_lm(mesh, out)
     _branches(mesh, out)
+    _rows_in(mesh, out)
     return out
 
 
@@ -517,7 +566,7 @@ VALUES = ["embedding/value", "embedding/grad", "pad/value",
           "train/grads", "adam_step/loss", "prefill/logits",
           "prefill/cache", "decode0/logits", "decode0/cache",
           "decode1/logits", "decode1/cache", "split_lm/loss",
-          "split_lm/grads"] + [
+          "split_lm/grads", "rows_in/value", "rows_in/grads"] + [
     f"{case}/{part}" for case in list(MOE_CASES) + list(RECURRENT_CASES)
     for part in (("attn/value", "attn/aux", "attn/grads")
                  if case in MOE_CASES else
@@ -568,6 +617,13 @@ def test_rank_local_branch_in_every_layer(ranks, case):
         if case in RECURRENT_CASES:
             # the mLSTM's output projection on each rank's shards
             assert out[f"taken/{case}/heads_out"] == 1.0, case
+            # the sLSTM's output gate: once alone, and in the tiny LM's
+            # one sLSTM layer, forward and recomputation
+            if case == "mlstm_split":
+                assert out[f"taken/{case}/rows_in"] == 1.0, case
+            assert out[f"taken/{case}/lm_rows_in"] == 2.0, case
+        else:
+            assert out[f"taken/{case}/lm_rows_in"] == 0.0, case
         assert out[f"taken/{case}/lm"] == 2 * layers, case
 
 
@@ -582,3 +638,27 @@ def test_no_dtensor_op_inside_the_loops(ranks, key):
         assert out[f"inner/{key}/calls"] > 0, key
         assert out[f"inner/{key}/dtensor_ops"] == 0.0, key
 
+
+@pytest.mark.parametrize("phase,flops,collectives", [
+    # [B/2, S, D/2] @ [D/2, H]: the partial sums reduce-scattered over
+    # the model axis onto the gates' split of H, [B/2, S, H/2] float32
+    ("forward", 2 * (B // 2) * S * 16 * 16,
+     {"reduce-scatter": ((B // 2) * S * 8 * 4, 1)}),
+    # the gradient all-gathered whole along H ([B/2, S, H]); x's
+    # gradient stays a partial sum over the model axis, as the other
+    # gates' are; the two local products of the forward's size
+    ("backward", 2 * 2 * (B // 2) * S * 16 * 16,
+     {"all-gather": ((B // 2) * S * 16 * 4, 1)})])
+def test_rows_in_counts(ranks, phase, flops, collectives):
+    """The sLSTM's output gate on the ranks' shards (``rows_in``), on a
+    (data 2, model 2) mesh at d_model 32, d_rnn 16 with its weight split
+    along d_model: per rank, the FLOPs and collectives that the dry
+    run's counter records, exactly, and the gates' layout; on torch
+    2.11 DTensor's own rules instead all-reduced a whole ``[B, S, H]``
+    and contracted the weight's gradient whole (PERF.md)."""
+    for out in ranks:
+        assert out["rows_in/layout"]
+        got_flops, got_bytes, got_calls = out["rows_in/counts"][phase]
+        assert got_flops == flops
+        assert {k: (got_bytes[k], got_calls[k]) for k in got_bytes} == \
+            collectives

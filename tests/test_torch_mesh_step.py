@@ -23,7 +23,12 @@ Tolerances:
 * rounds on a rank's own rows: 1e-6 dense, 1e-5 chunked, as the
   row-block sharded rounds (``tests/test_torch_mesh.py``);
 * the server's replicas, a 1-rank mesh against no mesh, a checkpoint
-  round trip, ``generate`` and a regroup from one state: bit for bit.
+  round trip, ``generate`` and a regroup from one state: bit for bit;
+* the sharded step's fused epoch (its CPU route) against the per-step
+  loop: as the unsharded step above; the shared all-reduce's plain
+  version against the rank-order float32 numpy sum: bit for bit, and
+  within 1e-6 of the summed magnitudes of gloo's all_reduce (which adds
+  in another order).
 """
 import dataclasses
 import functools
@@ -401,7 +406,7 @@ class _Searcher:
 def _whole_state_paths(ckpt, out):
     """(e) checkpoint, generate and a regroup in and out of the sharded
     mode, each from one state against the unsharded trainer; (f) a
-    grouping that does not divide; (g) the card's fused-epoch guard."""
+    grouping that does not divide."""
     from repro_torch.core import huscf as H
     from repro_torch.core import latency as L
     from repro_torch.data import partition as P
@@ -466,16 +471,84 @@ def _whole_state_paths(ckpt, out):
         "syncs": len(syncs), "ema_rows": int(rep._mid_ema.shape[0]),
         "plans": [p.local_rows for p in rep._fed_plans.values()]}
 
-    # (g) the card's fused epoch cannot capture the sharded step's
-    # collectives: a trainer with a graph pool refuses
-    guard = make(mesh)
-    guard.cfg = dataclasses.replace(guard.cfg, fused_epoch=True)
-    guard._graph_pool = object()
-    try:
-        guard.train_steps(1)
-        out["guard"] = None
-    except ValueError as e:
-        out["guard"] = str(e)
+
+def _fused_sharded(out):
+    """(g) the sharded step's fused epoch on the CPU route (the plain
+    rank-order sum the card's kernel computes) against the per-step gloo
+    loop, both from the seed's state and draws, on 2 and 4 ranks."""
+    from repro_torch.core import huscf as H
+    from repro_torch.core import latency as L
+    from repro_torch.data import partition as P
+    clients, devices, cuts = _population(L, P, 8)
+    for n in RANKS[1:]:
+        mesh = tmesh.make_federation_mesh(n, "cpu")
+        if not tmesh.in_mesh(mesh):
+            continue
+        runs = {}
+        for fused in (False, True):
+            tr = H.HuSCFTrainer(clients, devices, cuts=cuts, device="cpu",
+                                fed_mesh=mesh,
+                                config=_config(H.HuSCFConfig,
+                                               fused_epoch=fused))
+            tmesh.calls.clear()
+            first = tr.train_steps(1)
+            calls = dict(tmesh.calls)
+            ema = tr.middle_activations()
+            tr.train_steps(2)
+            params = tmesh.gather_state(
+                [(p, x) for p, x in _carry(tr) if p[0] in ("G", "D")],
+                tr.fed_mesh, tr._shard_axes, tr._is_rows)
+            runs[fused] = {"losses": first, "calls": calls, "ema": ema,
+                           "params": dict(params),
+                           "server": _server_digest(tr), "tr": tr}
+        loop, graph = runs[False], runs[True]
+        coll = graph["tr"]._graph_coll
+        out[("fused", n)] = {
+            "sharded": graph["tr"].step_sharded,
+            "route": dict(coll.routes),
+            "loss_diff": max(abs(graph["losses"][k] - loop["losses"][k])
+                             for k in loop["losses"]),
+            "ema_diff": float(np.abs(graph["ema"] - loop["ema"]).max()),
+            "param_diff": _torch_diff(graph["params"], loop["params"]),
+            "server": graph["server"],
+            "calls": (loop["calls"], graph["calls"]),
+            "messages": sum(coll.shared["data"].sizes.values())}
+
+
+def _plain_sum(out):
+    """The plain version of the shared all-reduce on 2 and 4 ranks: odd
+    and 16-float sizes, against the rank-order numpy sum and gloo's
+    all_reduce."""
+    import torch.distributed as dist
+    from repro_torch.kernels import shared_allreduce as sa
+    rank = dist.get_rank()
+    for n in RANKS[1:]:
+        mesh = tmesh.make_federation_mesh(n, "cpu")
+        if not tmesh.in_mesh(mesh):
+            continue
+        group = mesh.get_group("data")
+        sar = sa.SharedAllReduce(group, "cpu")
+        rec = {}
+        for size in (1, 16, 1001):
+            parts = [np.random.default_rng((size, q)).normal(
+                0, 10.0 ** (q - 2), size).astype(np.float32)
+                for q in range(n)]
+            want = parts[0].copy()
+            for p in parts[1:]:
+                want = want + p                # float32, rank order
+            got = sa.plain_all_reduce(torch.from_numpy(parts[rank].copy()),
+                                      group)
+            again = sar.all_reduce(torch.from_numpy(parts[rank].copy()))
+            ref = torch.from_numpy(parts[rank].copy())
+            dist.all_reduce(ref, group=group)
+            scale = np.abs(np.stack(parts)).sum(0)
+            rec[size] = {
+                "bits": bool(np.array_equal(got.numpy(), want)
+                             and np.array_equal(again.numpy(), want)),
+                "gloo": float((np.abs(got.numpy() - ref.numpy())
+                               / scale).max())}
+        rec["release"] = sar.release() is None and sar.cap == 0
+        out[("plain", n)] = rec
 
 
 def _collectives(out):
@@ -516,6 +589,8 @@ def _rank_body(init_np, batches, ckpt):
     _against_unsharded(out, k1_log)
     _executors(out)
     _whole_state_paths(ckpt, out)
+    _fused_sharded(out)
+    _plain_sum(out)
     return out
 
 
@@ -644,8 +719,10 @@ def test_sharded_step_matches_unsharded(step_ranks, n):
         assert recs[0]["calls_per_step"] == {}
     else:
         # BatchNorm statistics forward and backward, the server's
-        # gradients and the losses: all-reduces only
-        assert set(recs[0]["calls_per_step"]) == {"all_reduce"}
+        # gradients and the losses: all-reduces only, which a fused
+        # epoch on the CPU runs as the plain rank-order sum (one gather
+        # each)
+        assert recs[0]["calls_per_step"] == {"all_gather": 57}
 
 
 @pytest.mark.parametrize("n", RANKS[1:])
@@ -743,15 +820,62 @@ def test_non_divisible_grouping_stays_replicated(step_ranks):
         assert r["plans"] and not any(r["plans"])
 
 
-def test_fused_epoch_on_the_card_refuses_a_sharded_step(step_ranks):
-    """(g) A sharded step's collectives cannot be captured in a CUDA
-    graph through gloo: a trainer with a graph pool raises, naming
-    ``fused_epoch=False`` and ``--per-step``."""
+@pytest.mark.parametrize("backend,devices,route", [
+    ("gloo", [None, None], "plain"),
+    ("gloo", [0, 0, 0, 0], "kernel"),
+    ("nccl", [0, 1], "nccl"),
+    ("gloo", [0, 1], None),
+    ("gloo", [0, None], None)])
+def test_graph_route_by_backend_and_devices(backend, devices, route):
+    """(g) The fused epoch's route for a sharded step's all-reduces: the
+    plain rank-order sum on the CPU, the shared all-reduce kernel for
+    gloo ranks on one card, NCCL with a GPU per rank; gloo ranks on
+    several cards (and a mesh half on the CPU) raise, naming
+    ``--per-step``."""
+    if route is not None:
+        assert tmesh.graph_route(backend, devices) == route
+        return
+    with pytest.raises(ValueError) as e:
+        tmesh.graph_route(backend, devices)
+    if None not in devices:
+        assert "--per-step" in str(e.value)
+
+
+@pytest.mark.parametrize("n", RANKS[1:])
+def test_fused_sharded_epoch_matches_the_step_loop(step_ranks, n):
+    """(g) The sharded step's fused epoch (the CPU route: the plain
+    rank-order sum, the arithmetic of the card's kernel) against the
+    per-step gloo loop on the same draws: one step's losses and EMA
+    within 1e-5, three steps' parameters within 2 N lr, the server's
+    replicas bit for bit; the 57 all-reduces of the GAN step go through
+    the route (one gather each), none through gloo's all_reduce."""
     _, ranks = step_ranks
-    msgs = _on(ranks, "guard")
-    assert len(msgs) == 2
-    for m in msgs:
-        assert m and "fused_epoch=False" in m and "--per-step" in m
+    recs = _on(ranks, ("fused", n))
+    assert len(recs) == n
+    for r in recs:
+        assert r["sharded"] and r["route"] == {"data": "plain"}
+        assert r["loss_diff"] <= STEP_TOL and r["ema_diff"] <= STEP_TOL
+        assert r["param_diff"] <= 2 * 3 * LR
+        loop, graph = r["calls"]
+        assert loop == {"all_reduce": 57} and graph == {"all_gather": 57}
+        assert r["messages"] == 3 * 57
+    assert len({r["server"] for r in recs}) == 1
+
+
+@pytest.mark.parametrize("n", RANKS[1:])
+def test_plain_shared_all_reduce_is_the_rank_order_sum(step_ranks, n):
+    """The shared all-reduce's plain version (and the wrapper on CPU
+    tensors) equals the rank-order float32 numpy sum bit for bit on
+    every rank, and gloo's all_reduce within 1e-6 of the summed
+    magnitudes."""
+    _, ranks = step_ranks
+    recs = _on(ranks, ("plain", n))
+    assert len(recs) == n
+    for r in recs:
+        assert r.pop("release")
+        for size, x in r.items():
+            assert x["bits"], size
+            assert x["gloo"] <= 1e-6, (size, x["gloo"])
 
 
 @pytest.mark.parametrize("n", RANKS)
