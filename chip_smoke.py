@@ -213,12 +213,18 @@ Phases (any failure exits non-zero and prints no result):
      input shapes on the 256-card production mesh), ``python -m
      repro_torch.launch.dryrun_paper --lm granite-3-2b`` (the paper's
      224-client GAN step and the split LM, 1 pod), ``python -m
-     repro_torch.launch.dryrun --arch granite-moe-1b-a400m xlstm-350m
-     --shape train_4k prefill_32k`` (the MoE's rank-local expert dispatch
-     and the xLSTM's rank-local recurrences on the 256-card mesh; FLOPs,
-     collective bytes by kind, peak and trace seconds on the ``dryrun``
-     line), then ``python -m repro_torch.launch.roofline`` on the first's
-     records; each must exit 0 and no record may be an ``error``. The
+     repro_torch.launch.dryrun --arch granite-moe-1b-a400m --shape
+     train_4k prefill_32k`` (the MoE's rank-local expert dispatch) and
+     the same for xlstm-350m with ``decode_32k long_500k`` too (its
+     rank-local recurrences and decode steps) on the 256-card mesh
+     (FLOPs, collective bytes by kind, peak and trace seconds on the
+     ``dryrun`` line), then ``python -m repro_torch.launch.roofline`` on
+     the first's records; each must exit 0 and no record may be an
+     ``error``. Every 1-pod LM record (granite-3-2b's four, the split
+     LM's, the MoE's two, xlstm-350m's four) must equal DRYRUN_HELD, the
+     same pairs traced with torch 2.13 on a CPU host (FLOPs, peak bytes,
+     collective bytes by kind; a difference is printed with its pair,
+     key and both values, and fails the phase). The
      same dry run on the host mesh (1 rank) of two steps the card
      runs: granite-3-2b at ``LM_TRAIN`` (phase 4d's timed step, counted
      by ``FlopCounterMode`` with the dry run's formulas, its peak read
@@ -2437,8 +2443,75 @@ def run_lm(train_main, serve_main, smi: str, device: str = "cuda") -> dict:
 
 DRYRUN_TIMEOUT = 900
 # the MoE and xLSTM pairs traced beside granite-3-2b's (1 pod)
-DRYRUN_FAMILIES = ("granite-moe-1b-a400m", "xlstm-350m")
-DRYRUN_FAMILY_SHAPES = ("train_4k", "prefill_32k")
+DRYRUN_FAMILY_SHAPES = {
+    "granite-moe-1b-a400m": ("train_4k", "prefill_32k"),
+    "xlstm-350m": ("train_4k", "prefill_32k", "decode_32k", "long_500k")}
+# the LM pairs' 1-pod records as torch 2.13.0+cpu traces them on a CPU
+# host with the phase's commands (``python -m repro_torch.launch.dryrun
+# --arch A --shape S --device cuda``; ``dryrun_paper --lm granite-3-2b
+# --skip-gan --device cuda`` for the split LM): the card's torch must
+# give the same FLOPs, peak bytes and collective bytes by kind, exactly
+# (the models' DTensor layouts are the port's own,
+# ``sharding/dtensor_ops.py``, not a torch version's rules).
+# ``scripts/dryrun_peak.py --by-site`` and ``--diff`` find the site of a
+# difference. The GAN step's record is not held: its cuts come from a
+# search on the card.
+DRYRUN_HELD = {
+    ("granite-3-2b", "train_4k"): {
+        "flops": 144861864919040, "peak_bytes": 20908513168,
+        "collectives.all-gather": 37832646656,
+        "collectives.all-reduce": 663564,
+        "collectives.reduce-scatter": 3423732480,
+        "collectives.total": 41257042700},
+    ("granite-3-2b", "prefill_32k"): {
+        "flops": 42262679531520, "peak_bytes": 3863748992,
+        "collectives.all-gather": 13098835968,
+        "collectives.reduce-scatter": 1342177280,
+        "collectives.total": 14441013248},
+    ("granite-3-2b", "decode_32k"): {
+        "flops": 8609382400, "peak_bytes": 2017894848,
+        "collectives.all-gather": 2228183040,
+        "collectives.all-reduce": 2662400, "collectives.total": 2230845440},
+    ("granite-3-2b", "long_500k"): {
+        "flops": 977285120, "peak_bytes": 716366224,
+        "collectives.all-gather": 2227445760,
+        "collectives.all-reduce": 665600, "collectives.total": 2228111360},
+    ("huscf-lm:granite-3-2b", "split_train_s1024"): {
+        "flops": 16003199139840, "peak_bytes": 15031851020,
+        "collectives.all-gather": 7463763968,
+        "collectives.all-reduce": 647184,
+        "collectives.reduce-scatter": 427622400,
+        "collectives.total": 7892033552},
+    ("granite-moe-1b-a400m", "train_4k"): {
+        "flops": 78134649028608, "peak_bytes": 19975351252,
+        "collectives.all-gather": 12251574272,
+        "collectives.all-reduce": 28524652,
+        "collectives.reduce-scatter": 1224278400,
+        "collectives.total": 13504377324},
+    ("granite-moe-1b-a400m", "prefill_32k"): {
+        "flops": 142404036335616, "peak_bytes": 24621177616,
+        "collectives.all-gather": 3810537472, "collectives.all-reduce": 6144,
+        "collectives.reduce-scatter": 603979776,
+        "collectives.total": 4414523392},
+    ("xlstm-350m", "train_4k"): {
+        "flops": 20570745864192, "peak_bytes": 71569776668,
+        "collectives.all-gather": 15870132224,
+        "collectives.all-reduce": 6393872,
+        "collectives.reduce-scatter": 1229578240,
+        "collectives.total": 17106104336},
+    ("xlstm-350m", "prefill_32k"): {
+        "flops": 4851983745024, "peak_bytes": 1024456704,
+        "collectives.all-gather": 1832648704,
+        "collectives.reduce-scatter": 612368384,
+        "collectives.total": 2445017088},
+    ("xlstm-350m", "decode_32k"): {
+        "flops": 643792896, "peak_bytes": 112020752,
+        "collectives.all-gather": 156106752, "collectives.all-reduce": 204800,
+        "collectives.reduce-scatter": 49152, "collectives.total": 156360704},
+    ("xlstm-350m", "long_500k"): {
+        "flops": 160948224, "peak_bytes": 73139780,
+        "collectives.all-gather": 155222016, "collectives.all-reduce": 51200,
+        "collectives.reduce-scatter": 12288, "collectives.total": 155285504}}
 DRYRUN_FLOP_RTOL = 1e-3         # dry run against the card's count
 DRYRUN_PEAK_RANGE = (0.75, 1.25)  # predicted / measured peak bytes
 
@@ -2556,6 +2629,43 @@ def _held(name: str, rec: dict, card: dict) -> dict:
     return out
 
 
+def record_keys(rec: dict) -> dict:
+    """The numbers of a dry-run record that ``DRYRUN_HELD`` holds."""
+    return {"flops": rec["cost"]["flops"],
+            "peak_bytes": rec["memory"]["peak_bytes"],
+            **{f"collectives.{k}": v for k, v in rec["collectives"].items()}}
+
+
+def held_records(recs: list) -> list:
+    """The pairs of ``DRYRUN_HELD`` among the 1-pod records ``recs``,
+    each key against its held value. A difference is printed on a line
+    of its own (the pair, the key, both values) and fails the phase."""
+    out, bad = [], []
+    for r in recs:
+        want = DRYRUN_HELD.get((r["arch"], r["shape"]))
+        if want is None or r["multi_pod"]:
+            continue
+        got = record_keys(r)
+        diff = [k for k in sorted(set(got) | set(want))
+                if got.get(k) != want.get(k)]
+        bad += [f"dry run {r['arch']} x {r['shape']} (1 pod): {k} "
+                f"{got.get(k)} on this card's torch, {want.get(k)} held "
+                "(torch 2.13)" for k in diff]
+        out.append({"arch": r["arch"], "shape": r["shape"],
+                    "equal": not diff, **got})
+    for line in bad:
+        print(line, flush=True)
+        log(line)
+    if bad:
+        raise AssertionError(f"{len(bad)} dry-run numbers differ from "
+                             "DRYRUN_HELD")
+    missing = set(DRYRUN_HELD) - {(r["arch"], r["shape"]) for r in out}
+    if missing:
+        raise AssertionError(f"held dry-run pairs not traced: {missing}")
+    log(f"dry-run records equal the held ones: {sorted(DRYRUN_HELD)}")
+    return out
+
+
 def run_dryrun(tr, lm: dict, smi: str, device: str = "cuda",
                lm_cfg=None) -> dict:
     """Phase 4g: the dry runs (docstring). The card measures the slice's
@@ -2569,7 +2679,7 @@ def run_dryrun(tr, lm: dict, smi: str, device: str = "cuda",
     os.makedirs(build, exist_ok=True)
     paths = {k: os.path.join(build, f"{k}.jsonl")
              for k in ("dryrun_torch", "dryrun_paper_torch",
-                       "dryrun_families_torch")}
+                       *(f"dryrun_{a}_torch" for a in DRYRUN_FAMILY_SHAPES))}
     for p in paths.values():
         if os.path.exists(p):
             os.remove(p)
@@ -2589,12 +2699,11 @@ def run_dryrun(tr, lm: dict, smi: str, device: str = "cuda",
                          "repro_torch.launch.dryrun_paper", "--lm", LM_ARCH,
                          "--out", paths["dryrun_paper_torch"],
                          "--device", device],
-        "dryrun_families": [sys.executable, "-m",
-                            "repro_torch.launch.dryrun", "--arch",
-                            *DRYRUN_FAMILIES, "--shape",
-                            *DRYRUN_FAMILY_SHAPES, "--out",
-                            paths["dryrun_families_torch"],
-                            "--device", device],
+        **{f"dryrun_{a}": [sys.executable, "-m",
+                           "repro_torch.launch.dryrun", "--arch", a,
+                           "--shape", *shapes, "--out",
+                           paths[f"dryrun_{a}_torch"], "--device", device]
+           for a, shapes in DRYRUN_FAMILY_SHAPES.items()},
         "host": [sys.executable, "-c",
                  "import chip_smoke; chip_smoke.dryrun_host_child("
                  f"{host_in!r}, {host_out!r})"]}
@@ -2633,12 +2742,16 @@ def run_dryrun(tr, lm: dict, smi: str, device: str = "cuda",
     errors = [r for v in records.values() for r in v if "error" in r]
     if errors:
         raise AssertionError(f"dry-run error records: {errors}")
-    families = {(r["arch"], r["shape"]) for r in
-                records["dryrun_families_torch"] if "cost" in r}
-    want = {(a, s) for a in DRYRUN_FAMILIES for s in DRYRUN_FAMILY_SHAPES}
-    if families != want:
-        raise AssertionError(f"dry-run records {sorted(families)}, "
-                             f"wanted {sorted(want)}")
+    fam = [r for a in DRYRUN_FAMILY_SHAPES
+           for r in records[f"dryrun_{a}_torch"] if "cost" in r]
+    want = {(a, s) for a, shapes in DRYRUN_FAMILY_SHAPES.items()
+            for s in shapes}
+    if {(r["arch"], r["shape"]) for r in fam} != want:
+        raise AssertionError(f"dry-run records "
+                             f"{sorted((r['arch'], r['shape']) for r in fam)}"
+                             f", wanted {sorted(want)}")
+    held = held_records([r for v in records.values() for r in v
+                         if "cost" in r])
 
     def brief(r):
         if "skipped" in r or "error" in r:
@@ -2659,7 +2772,7 @@ def run_dryrun(tr, lm: dict, smi: str, device: str = "cuda",
                "flops": t["step_flops"], "peak_bytes": t["step_peak_bytes"],
                "step_s": t["step_s"]}),
            "huscf_gan": _held("huscf-gan slice", host["gan"], gan_card),
-           "gan_card": gan_card, "reduced": []}
+           "gan_card": gan_card, "held_records": held, "reduced": []}
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"dry-run phase {out['phase_s']:.1f}s")
     return out

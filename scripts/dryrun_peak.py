@@ -24,7 +24,17 @@ module (file:line and function), the last DTensor operation dispatched
 before it (whose redistributions issue the collectives) and the local
 operation. The sites go into the JSON line under ``sites``; two
 records of one pair traced under two torch versions differ where their
-DTensor rules do (diff their ``sites``).
+DTensor rules do.
+
+``--diff A B`` compares two such records (files holding a ``--by-site``
+run's output, its JSON line last): the totals, then every site whose
+FLOPs or collective bytes of a kind differ, summed over its DTensor and
+local operations (whose names a torch version may change), largest
+difference first. It exits 1 if anything differs, 0 if nothing does:
+
+    python3 scripts/dryrun_peak.py --arch xlstm-350m --shape decode_32k \
+        --by-site > a.log            # on one torch version; b.log on another
+    python3 scripts/dryrun_peak.py --diff a.log b.log
 """
 from __future__ import annotations
 
@@ -116,10 +126,61 @@ def _frame() -> str:
     return "-"
 
 
+def load_record(path: str) -> dict:
+    """The last JSON line of a ``--by-site`` run's output in ``path``."""
+    with open(path) as f:
+        lines = [line for line in f if line.startswith("{")]
+    if not lines:
+        raise ValueError(f"{path}: no JSON line")
+    return json.loads(lines[-1])
+
+
+def _by_site(rec: dict) -> dict:
+    """site -> {metric: value}: the FLOPs and the collective bytes by
+    kind of each site, summed over its operations."""
+    out = collections.defaultdict(collections.Counter)
+    for s in rec.get("sites", []):
+        for k, v in s.items():
+            if k == "flops" or k in D.COLLECTIVE_KINDS.values():
+                out[s["site"]][k] += v
+    return out
+
+
+def diff_records(a: dict, b: dict) -> list:
+    """(site, metric, a's value, b's value) wherever two records differ:
+    the totals first (site ``total``: FLOPs, peak bytes, each kind's
+    collective bytes), then the sites, each group by the size of the
+    difference, largest first."""
+    def totals(r):
+        return {"flops": r["flops"], "peak_bytes": r["peak_bytes"],
+                **r["collectives"]}
+    rows = [("total", k, totals(a).get(k, 0.0), totals(b).get(k, 0.0))
+            for k in sorted(set(totals(a)) | set(totals(b)))]
+    sa, sb = _by_site(a), _by_site(b)
+    rows += [(site, k, sa[site][k], sb[site][k])
+             for site in set(sa) | set(sb)
+             for k in set(sa[site]) | set(sb[site])]
+    rows = [r for r in rows if r[2] != r[3]]
+    return sorted(rows, key=lambda r: (r[0] != "total", -abs(r[3] - r[2]),
+                                       r[0], r[1]))
+
+
+def main_diff(path_a: str, path_b: str) -> int:
+    a, b = load_record(path_a), load_record(path_b)
+    print(f"A {path_a}: {a['arch']} x {a['shape']}, torch {a['torch']}; "
+          f"B {path_b}: {b['arch']} x {b['shape']}, torch {b['torch']}")
+    rows = diff_records(a, b)
+    for site, metric, va, vb in rows:
+        print(f"  {site}  {metric}: A {va:.6g}  B {vb:.6g}  "
+              f"(B - A {vb - va:+.6g})")
+    print(f"{len(rows)} differences")
+    return 1 if rows else 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True)
-    ap.add_argument("--shape", required=True)
+    ap.add_argument("--arch")
+    ap.add_argument("--shape")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="the mesh's device type (cuda, or cpu)")
@@ -127,7 +188,13 @@ def main(argv=None):
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--by-site", action="store_true",
                     help="attribute FLOPs and collectives to their sites")
+    ap.add_argument("--diff", nargs=2, metavar=("A", "B"),
+                    help="compare two --by-site runs' output files")
     args = ap.parse_args(argv)
+    if args.diff:
+        return main_diff(*args.diff)
+    if not (args.arch and args.shape):
+        ap.error("--arch and --shape are required (or --diff A B)")
     torch.set_num_threads(1)
     if args.dtensor_rules:
         from repro_torch.sharding import dtensor_ops as dt
@@ -175,4 +242,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -34,7 +34,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import nn
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import adam
-from repro_torch.sharding.dtensor_ops import whole_dim
+from repro_torch.sharding.dtensor_ops import to_param_layout, whole_dim
 from repro_torch.sharding.policy import maybe_shard
 from repro_torch.tree import tree_map
 
@@ -185,7 +185,8 @@ def make_split_train_step(cfg: ArchConfig, groups: Sequence[LMProfileGroup],
     def train_step(params, opt_state, batch):
         loss, _, grads = T.value_and_grad(
             lambda p: split_lm_loss(cfg, p, groups, batch, rows), params)
-        opt_state, params = opt_update(opt_state, grads, params)
+        opt_state, params = opt_update(
+            opt_state, to_param_layout(grads, params), params)
         return params, opt_state, {"loss": loss}
 
     return train_step, opt_init

@@ -16,7 +16,11 @@ On DTensors (a mesh run) the routing and the aux losses are DTensor
 operations on the batch-split tokens, and the expert FFN (``experts``:
 ``route``'s dispatch and combine, ``expert_ffn``'s einsums) runs on
 each rank's own batch rows and its own experts or ``d_ff`` slice
-(``sharding.dtensor_ops.local_experts``).
+(``sharding.dtensor_ops.local_experts``), the top-k on each rank's own
+rows (``local_rows``). Their gradients are laid out by name where the
+router's and the aux losses' meet (``dtensor_ops.grad_as_resid``,
+``keep_grad_layout``, ``whole``), not by a torch version's DTensor
+rules.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import nn
-from repro_torch.sharding.dtensor_ops import local_experts
+from repro_torch.sharding.dtensor_ops import grad_as_resid, \
+    keep_grad_layout, local_experts, local_rows, whole
 
 
 def moe_init(d_model: int, d_ff: int, n_experts: int, gen, device, *,
@@ -50,6 +55,7 @@ def moe_init(d_model: int, d_ff: int, n_experts: int, gen, device, *,
     return p
 
 
+@local_rows
 def top_k_stable(probs: torch.Tensor, k: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(values, indices) of the k largest along the last axis; equal
@@ -65,7 +71,8 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, *, top_k: int,
     B, S, D = x.shape
     E = p["router"].shape[1]
 
-    logits = torch.einsum("bsd,de->bse", x.float(), p["router"])
+    logits = torch.einsum("bsd,de->bse", grad_as_resid(x).float(),
+                          p["router"])
     probs = torch.softmax(logits, dim=-1)                  # [B, S, E]
 
     gate_vals, gate_idx = top_k_stable(probs, top_k)       # [B, S, k]
@@ -76,9 +83,12 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, *, top_k: int,
     # layer then stops at the combine product's saved inputs, as the
     # reference's remat recomputes only what its backward reads
     top1 = gate_idx[..., 0].reshape(-1)
-    frac = F.one_hot(top1, E).float().mean(0)
-    lb = E * torch.sum(frac * probs.reshape(-1, E).mean(0))
-    z = torch.mean(torch.logsumexp(logits, -1) ** 2)
+    # the batch means whole on every rank of a mesh (``z`` where the
+    # loss needs it: ``transformer._moe_aux_loss``)
+    frac = whole(F.one_hot(top1, E).float().mean(0))
+    p_mean = whole(keep_grad_layout(probs).reshape(-1, E).mean(0))
+    lb = E * torch.sum(frac * p_mean)
+    z = torch.mean(torch.logsumexp(keep_grad_layout(logits), -1) ** 2)
     # every slot's choice, kept or dropped, as the reference counts them
     counts = (gate_idx[..., None] == torch.arange(E, device=x.device))
     aux = {"load_balance": lb, "router_z": z,

@@ -37,6 +37,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.dtensor_ops import sum_squares
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, torch.Tensor]
@@ -459,5 +460,4 @@ def tree_bytes(tree) -> int:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(torch.stack([torch.sum(torch.square(x.float()))
-                                   for x in tree_leaves(tree)]).sum())
+    return torch.sqrt(sum_squares(tree_leaves(tree)))

@@ -12,11 +12,12 @@ not bit for bit. mLSTM and sLSTM loop over time in Python: one cell
 update per step, 16-18 tensor ops each (the products, gates and
 normaliser), so a layer's forward launches ~17 S kernels for its
 recurrence; a fused chunkwise kernel is later work. On DTensors (a mesh
-run) the loops run on each rank's own batch rows and heads or hidden
-units (``dtensor_ops.local_recurrence``); the projections into them
-stay DTensor operations, and the mLSTM's head-wise output projection
-and the sLSTM's output gate contract each rank's shards
-(``dtensor_ops.heads_out``, ``dtensor_ops.rows_in``).
+run) the loops, and the one-step cells of decode, run on each rank's
+own batch rows and heads or hidden units (``dtensor_ops.local_recurrence``,
+``dtensor_ops.local_step``); the projections into them stay DTensor
+operations, and the mLSTM's head-wise output projection and the sLSTM's
+output gate contract each rank's shards (``dtensor_ops.heads_out``,
+``dtensor_ops.rows_in``).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import nn
 from repro_torch.sharding.dtensor_ops import heads_out, \
-    local_recurrence, pad, rows_in
+    local_recurrence, local_step, pad, rows_in
 
 RG_LRU_C = 8.0
 
@@ -196,11 +197,10 @@ def _mlstm_scan(q, k, v, i_g, f_g, o_g):
 
 def mlstm_step(p, x: torch.Tensor, state: Dict) -> Tuple[torch.Tensor, Dict]:
     """x [B,1,D] -> (out [B,1,D], new state)."""
-    q, k, v, i_g, f_g, o_g = _mlstm_qkvg(p, x)
-    C, n, h = _mlstm_cell(state["C"], state["n"], q[:, 0], k[:, 0], v[:, 0],
-                          i_g[:, 0], f_g[:, 0], o_g[:, 0])
-    out = torch.einsum("bnh,nhd->bd", h.to(x.dtype), p["wo"])
-    return out[:, None].to(x.dtype), {"C": C, "n": n}
+    C, n, h = local_step(_mlstm_cell, (state["C"], state["n"]),
+                         _mlstm_qkvg(p, x))                  # h [B,1,N,hd]
+    out = heads_out(h.to(x.dtype), p["wo"]).to(x.dtype)
+    return out, {"C": C, "n": n}
 
 
 # ---------------------------------------------------------------------------
@@ -264,8 +264,8 @@ def _slstm_scan(z, i, f, o):
 
 
 def slstm_step(p, x: torch.Tensor, state: Dict) -> Tuple[torch.Tensor, Dict]:
-    z, i, f, o = _slstm_pre(p, x)
-    c, n, m, h = _slstm_cell(state["c"], state["n"], state["m"],
-                             z[:, 0], i[:, 0], f[:, 0], o[:, 0])
-    out = h.to(x.dtype) @ p["w_out"]
-    return out[:, None].to(x.dtype), {"c": c, "n": n, "m": m}
+    """x [B,1,D] -> (out [B,1,D], new state)."""
+    c, n, m, h = local_step(_slstm_cell, (state["c"], state["n"],
+                                          state["m"]), _slstm_pre(p, x))
+    out = (h.to(x.dtype) @ p["w_out"]).to(x.dtype)       # h [B,1,H]
+    return out, {"c": c, "n": n, "m": m}

@@ -49,7 +49,9 @@ from repro_torch.models.attention import (apply_rope, attn_init,
                                           out_proj, qkv_proj)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.sharding.dtensor_ops import (embedding, fsdp_gather, pad,
-                                              whole_dim, write_slot)
+                                              to_param_layout, whole,
+                                              whole_dim, write_slot,
+                                              write_state)
 from repro_torch.sharding.policy import maybe_shard
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -152,16 +154,22 @@ def _window_for(cfg: ArchConfig, kind: str,
 
 
 def _ffn(cfg: ArchConfig, p: Params, x: torch.Tensor
-         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The block's FFN residual: (new x, MoE aux loss or None)."""
+         ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """The block's FFN residual: (new x, the MoE's aux losses or None;
+    ``_moe_aux_loss`` combines them where the loss needs them, so the
+    serving steps, which drop them, run no collective for them)."""
     h2 = maybe_shard(_norm_apply(cfg, p["norm2"], x), "resid_inner")
     if cfg.n_experts:
         o, moe_aux = moe_apply(p["moe"], h2, top_k=cfg.moe_top_k,
                                capacity_factor=cfg.capacity_factor,
                                mlp_variant=cfg.mlp_variant)
-        return (_residual(x, o),
-                moe_aux["load_balance"] + 1e-3 * moe_aux["router_z"])
+        return _residual(x, o), moe_aux
     return _residual(x, mlp_apply(cfg, p["mlp"], h2)), None
+
+
+def _moe_aux_loss(moe_aux: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The aux losses' term, whole on every rank of a mesh."""
+    return whole(moe_aux["load_balance"]) + 1e-3 * whole(moe_aux["router_z"])
 
 
 def _residual(x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
@@ -208,7 +216,7 @@ def block_seq(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
     if cfg.d_ff > 0:
         x, a = _ffn(cfg, p, x)
         if a is not None:
-            aux = aux + a
+            aux = aux + _moe_aux_loss(a)
     return maybe_shard(x, "resid"), aux
 
 
@@ -305,8 +313,12 @@ def block_decode(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
                  force_window: Optional[int] = None) -> torch.Tensor:
     """One-token step. x [B,1,D]; ``length`` tokens already in the cache.
     Writes the token's keys/values (ring slot ``length % s_max``) or the
-    new recurrent state into ``entry``'s tensors in place; returns x."""
-    h = _norm_apply(cfg, p["norm1"], x)
+    new recurrent state into ``entry``'s tensors in place; returns x.
+    On a mesh the block takes the layout sites of ``block_prefill`` (the
+    sublayer inputs ``resid_inner``, their outputs joining the residual
+    stream as ``resid``), so no sum of partial products is left to
+    DTensor's rules between sublayers."""
+    h = maybe_shard(_norm_apply(cfg, p["norm1"], x), "resid_inner")
     if kind in ("attn", "local_attn"):
         q, k, v = qkv_proj(p["attn"], h)
         pos = torch.arange(length, length + 1, device=x.device)
@@ -318,27 +330,27 @@ def block_decode(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
         write_slot(entry["v"], idx, v[:, 0])
         o = decode_attention(q, entry["k"], entry["v"],
                              min(length + 1, s_max))
-        x = x + out_proj(p["attn"], o)
+        x = _residual(x, out_proj(p["attn"], o))
     elif kind == "rglru":
         o, hs = rec.rglru_step(p["rglru"], h, entry["h"])
-        x = x + o
-        entry["h"].copy_(hs)
+        x = _residual(x, o)
+        write_state(entry["h"], hs)
     else:
         names = ("C", "n") if kind == "mlstm" else ("c", "n", "m")
         step = rec.mlstm_step if kind == "mlstm" else rec.slstm_step
         o, st = step(p[kind], h, {n: entry[n] for n in names})
-        x = x + o
+        x = _residual(x, o)
         for n in names:
-            entry[n].copy_(st[n])
+            write_state(entry[n], st[n])
     if "xk" in entry and "xattn" in p:
-        hx = _norm_apply(cfg, p["norm_x"], x)
+        hx = maybe_shard(_norm_apply(cfg, p["norm_x"], x), "resid_inner")
         q, _, _ = qkv_proj(p["xattn"], hx)
         o = decode_attention(q, entry["xk"], entry["xv"],
                              entry["xk"].shape[1])
-        x = x + out_proj(p["xattn"], o)
+        x = _residual(x, out_proj(p["xattn"], o))
     if cfg.d_ff > 0:
         x = _ffn(cfg, p, x)[0]
-    return x
+    return maybe_shard(x, "resid")
 
 
 # ---------------------------------------------------------------------------
@@ -529,6 +541,8 @@ def make_train_step(cfg: ArchConfig, optimizer,
     def train_step(params, opt_state, batch):
         loss, metrics, grads = value_and_grad(
             lambda p: lm_loss(cfg, p, batch, force_window), params)
+        # on a mesh: each gradient on its parameter's shards
+        grads = to_param_layout(grads, params)
         opt_state, params = opt_update(opt_state, grads, params)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return params, opt_state, dict(metrics, loss=loss)
@@ -613,7 +627,7 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
     if token.ndim == 1:
         token = token[:, None]
     x = embedding(token.long(), fsdp_gather(params["embed"])["table"])
-    x = x.to(cfg.dtype) * _embed_scale(cfg)
+    x = maybe_shard(x.to(cfg.dtype) * _embed_scale(cfg), "resid")
     length = cache["length"]
     n_super, rest = _pattern_split(cfg)
     slices_c = unstack(cache["scanned"], n_super)

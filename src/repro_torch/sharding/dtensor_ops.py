@@ -25,7 +25,16 @@ reference's specs:
   rank's own batch rows and heads or hidden units, ``heads_out``, the
   mLSTM's head-wise output projection on each rank's shards, and
   ``rows_in``, the sLSTM's output-gate projection, whose weight is split
-  along its rows, on each rank's shards.
+  along its rows, on each rank's shards;
+* ``local_rows``: a row-by-row function (the MoE's top-k) on each rank's
+  own rows; ``grad_as_resid``, ``keep_grad_layout`` and ``whole``: the
+  MoE's gradients and aux statistics in named layouts;
+* ``local_step``: one decode step of such a recurrence on each rank's
+  own rows and heads or hidden units, and ``write_state``, its new state
+  written into the cache entry in the entry's own layout;
+* ``to_param_layout``: the train step's gradients laid out as their
+  parameters before the optimizer update, and ``sum_squares``, the
+  global norm's sum over them on each rank's shards.
 
 Every DTensor branch is held against the plain path on real values over
 gloo ranks by ``tests/test_torch_dtensor_ops.py``.
@@ -38,8 +47,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.policy import active_mesh, data_axes, \
-    maybe_shard
+from repro_torch.sharding.policy import act_spec, active_mesh, data_axes, \
+    maybe_shard, sanitize, to_placements
 
 
 def _is_dtensor(x) -> bool:
@@ -300,6 +309,90 @@ def _even(x, placements, mesh) -> bool:
     return all(x.shape[d] % n == 0 for d, n in ways.items())
 
 
+class _GradTo(torch.autograd.Function):
+    """The identity on a DTensor, whose gradient is redistributed to
+    ``placements`` (one named collective, where DTensor's own rules for
+    the backward ops upstream would otherwise meet it as it came)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != ctx.placements:
+            grad = grad.redistribute(grad.device_mesh, ctx.placements)
+        return grad, None
+
+
+def keep_grad_layout(x):
+    """``x`` as it is, its gradient brought to ``x``'s own layout in one
+    redistribution (partial sums summed, a whole gradient sliced), so
+    the backward ops before ``x`` meet their gradients in their forward
+    layout whatever layouts the uses of ``x`` leave them in. The MoE's
+    gates (whose gradient the experts leave partial over the model
+    axis) and its router's logits and probabilities (whose aux losses'
+    gradients come whole over the batch) take it: DTensor's rules for
+    the softmax's and the top-k's backward on such gradients differ by
+    torch version. Plain tensors as they are."""
+    if not _is_dtensor(x):
+        return x
+    return _GradTo.apply(x, tuple(x.placements))
+
+
+def local_rows(fn):
+    """Decorates ``fn(x, *args) -> tuple`` computed row by row: each
+    output's rows (dim 0) are ``x``'s, each from its own row alone. A
+    DTensor ``x`` split evenly along its rows or whole, and split along
+    nothing else, runs ``fn`` on each rank's own rows; the outputs take
+    ``x``'s placements and their gradients come back in them. The MoE's
+    top-k takes it: DTensor's rule for the sort's backward (a scatter)
+    on batch-split rows differs by torch version (one all-gathers the
+    whole batch's scores and indices). Anything else goes to ``fn`` as
+    it is."""
+    @functools.wraps(fn)
+    def run(x, *args, **kw):
+        from torch.distributed.tensor import DTensor, Shard
+        if not (_is_dtensor(x)
+                and all(p == Shard(0) or p.is_replicate()
+                        for p in x.placements)
+                and _even(x, x.placements, x.device_mesh)):
+            return fn(x, *args, **kw)
+        out = fn(_DenseGrad.apply(x.to_local()), *args, **kw)
+        return tuple(DTensor.from_local(o, x.device_mesh, x.placements,
+                                        run_check=False) for o in out)
+    return run
+
+
+def whole(x):
+    """``x`` with its partial sums summed (an all-reduce over the mesh
+    dims that hold them), its splits kept; anything else as it is. The
+    MoE's aux statistics take it, so the losses built from them hold
+    no partial sums for DTensor's rules to reduce where they meet."""
+    from torch.distributed.tensor import Replicate
+    if not _is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def grad_as_resid(x):
+    """``x`` ``[B, S, D]`` as it is, its gradient laid out as the
+    ``resid`` site lays the residual stream out (a reduce-scatter of
+    partial sums onto the sequence-parallel split, a local slice of a
+    whole gradient). The MoE's router and its experts read the same
+    tokens, and their gradients (one whole, one partial over the model
+    axis) then add up in one layout, where DTensor's rules for adding
+    the two differ by torch version. Plain tensors, and DTensors
+    outside an ``activation_sharding``, as they are."""
+    mesh, policy = active_mesh()
+    if mesh is None or not _is_dtensor(x):
+        return x
+    spec = sanitize(mesh, x.shape, act_spec(mesh, policy, "resid"))
+    return _GradTo.apply(x, tuple(to_placements(x.device_mesh, spec)))
+
+
 def _expert_shards(x, gate_vals, gate_idx, wi, wg, wo):
     """(local arguments, first local expert, placements of the partial
     output) of the expert FFN's DTensor arguments, or None unless: the
@@ -349,8 +442,12 @@ def _expert_shards(x, gate_vals, gate_idx, wi, wg, wo):
                 for i, p in enumerate(w.placements)]
         return _DenseGrad.apply(w.to_local(grad_placements=grad))
 
-    args = (_DenseGrad.apply(x.to_local(grad_placements=x_grad)),
-            _DenseGrad.apply(gate_vals.to_local(grad_placements=x_grad)),
+    # the gradients leave as partial sums over the ranks that split the
+    # weights; summed at once into the tokens' residual layout and the
+    # gates' own, so the router's backward runs in its forward layout
+    tokens, gates = grad_as_resid(x), keep_grad_layout(gate_vals)
+    args = (_DenseGrad.apply(tokens.to_local(grad_placements=x_grad)),
+            _DenseGrad.apply(gates.to_local(grad_placements=x_grad)),
             gate_idx.to_local(), weight(wi), weight(wg), weight(wo))
     expert0 = _local_offset(wi)[1][0] if kind == "experts" else 0
     return args, expert0, x_grad
@@ -387,12 +484,7 @@ def _sum_partials(out):
     """A ``[B, S, D]`` DTensor of partial sums summed into the layout of
     the next ``resid`` site (a reduce-scatter onto the sequence-parallel
     residual), or made whole where no site is active."""
-    from torch.distributed.tensor import Replicate
-    out = maybe_shard(out, "resid")
-    if any(p.is_partial() for p in out.placements):
-        out = out.redistribute(out.device_mesh, [
-            Replicate() if p.is_partial() else p for p in out.placements])
-    return out
+    return whole(maybe_shard(out, "resid"))
 
 
 def _heads_plan(h, w):
@@ -529,6 +621,19 @@ def rows_in(x, w, like):
     return out.redistribute(mesh, target)
 
 
+def _rows_heads_target(placements):
+    """The recurrences' layout, per mesh dim, of tensors with their
+    batch rows on dim 0 and their heads (or hidden units) on dim 2, from
+    each one's ``placements``: a mesh dim that splits the heads of any
+    splits them in all, one that splits the rows of all keeps them
+    split, any other holds them whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(2) if Shard(2) in pls else
+                 Shard(0) if all(p == Shard(0) for p in pls) else
+                 Replicate()
+                 for pls in zip(*placements))
+
+
 def _recurrence_shards(xs):
     """(local shards, placements) of the DTensors ``xs`` ``[B, S, N,
     ...]`` brought to one layout: a mesh dim that splits dim 2 of any
@@ -544,10 +649,7 @@ def _recurrence_shards(xs):
                for t in xs):
         return None
     mesh = xs[0].device_mesh
-    target = tuple(Shard(2) if Shard(2) in pls else
-                   Shard(0) if all(p == Shard(0) for p in pls) else
-                   Replicate()
-                   for pls in zip(*(t.placements for t in xs)))
+    target = _rows_heads_target([t.placements for t in xs])
     if not all(_even(t, target, mesh) for t in xs):
         return None
     out = []
@@ -587,3 +689,133 @@ def local_recurrence(out_dims):
                 for o, d in zip(fn(*shards), out_dims))
         return run
     return wrap
+
+
+def _step_plan(state, xs):
+    """(the state's and the inputs' placements) for ``local_step`` on
+    DTensors: ``_rows_heads_target``'s layout, the state's dim 1 standing
+    for the inputs' dim 2 (so batch 1, whole on the data axes, stays
+    whole). Partial sums are summed into it. None for plain tensors, two
+    meshes or an uneven split."""
+    from torch.distributed.tensor import Replicate, Shard
+    ts = tuple(state) + tuple(xs)
+    if not all(_is_dtensor(t) and t.device_mesh == ts[0].device_mesh
+               for t in ts):
+        return None
+    mesh = ts[0].device_mesh
+    as_input = {Shard(0): Shard(0), Shard(1): Shard(2)}
+    t_in = _rows_heads_target(
+        [x.placements for x in xs]
+        + [[as_input.get(p, Replicate()) for p in t.placements]
+           for t in state])
+    t_state = tuple(Shard(1) if p == Shard(2) else p for p in t_in)
+    if not (all(_even(t, t_state, mesh) for t in state)
+            and all(_even(x, t_in, mesh) for x in xs)):
+        return None
+    return t_state, t_in
+
+
+def local_step(cell, state, xs):
+    """One decode step of a recurrence: ``cell(*state, *xt) -> (*new
+    state, h)``, where ``xt`` are the token's slices ``x[:, 0]`` of the
+    inputs ``xs`` ``[B, 1, N, ...]`` and the state's tensors hold the
+    batch rows on dim 0 and the index N (a head, a hidden unit) on dim 1
+    (the mLSTM's ``C [B, N, hd, hd]``, ``n [B, N, hd]``; the sLSTM's
+    ``[B, H]``), as the cell's token inputs do. Returns the new state
+    and ``h`` as ``[B, 1, N, ...]``. DTensors laid out as ``_step_plan``
+    allows (each redistributed to it where it differs, a local slice
+    where it was whole) run ``cell`` on each rank's own rows and heads,
+    so no DTensor operation runs inside it: the new state has the plan's
+    placements, ``h`` the inputs'. The one-step counterpart of
+    ``local_recurrence``, whose rule it keeps; DTensor's own rules for
+    the cell's products of differently laid out operands differ by torch
+    version (one all-reduces the state inside the cell, another at the
+    cache write). Plain tensors, and DTensors the plan refuses, run
+    ``cell`` as they are."""
+    plan = _step_plan(state, xs)
+    if plan is None:
+        *new, h = cell(*state, *(x[:, 0] for x in xs))
+        return (*new, h[:, None])
+    from torch.distributed.tensor import DTensor
+    t_state, t_in = plan
+    mesh = xs[0].device_mesh
+
+    def local(t, target):
+        if tuple(t.placements) != target:
+            t = t.redistribute(mesh, target)
+        return _DenseGrad.apply(t.to_local())
+    *new, h = cell(*(local(t, t_state) for t in state),
+                   *(local(x, t_in)[:, 0] for x in xs))
+    return (*(DTensor.from_local(t, mesh, t_state, run_check=False)
+              for t in new),
+            DTensor.from_local(h[:, None], mesh, t_in, run_check=False))
+
+
+def write_state(dst, new) -> None:
+    """``dst.copy_(new)`` in place: a recurrent block's new state into
+    its cache entry. A DTensor ``new`` is brought to ``dst``'s placements
+    in one redistribution (an all-gather where the step split the state
+    finer than the cache holds it, nothing where they are alike) and
+    copied shard to shard, so the write never depends on DTensor's rule
+    for a ``copy_`` between layouts (one torch version all-reduces a
+    partial state there, another inside the step)."""
+    if not _is_dtensor(dst):
+        dst.copy_(new)
+        return
+    if tuple(new.placements) != tuple(dst.placements):
+        new = new.redistribute(dst.device_mesh, dst.placements)
+    dst.to_local().copy_(new.to_local())
+
+
+def to_param_layout(grads, params):
+    """``grads`` with each DTensor leaf laid out as its parameter in
+    ``params`` (trees alike): partial sums reduce-scattered where the
+    parameter is split, all-reduced where it is whole, in one
+    redistribution per leaf. The train step calls it between the
+    gradients and the optimizer update, so Adam's elementwise ops and the
+    global norm run on the parameters' shards whatever layout autograd
+    left a gradient in: DTensor's own rules for an op between a partial
+    sum and a shard differ by torch version (one all-reduces the
+    gradient whole, another reduce-scatters it). Plain tensors, and
+    gradients already so laid out, are returned as they are."""
+    from repro_torch.tree import tree_map
+
+    def one(g, p):
+        if not _is_dtensor(g) or tuple(g.placements) == tuple(p.placements):
+            return g
+        return g.redistribute(p.device_mesh, p.placements)
+    return tree_map(one, grads, params)
+
+
+def sum_squares(xs):
+    """``sum(x.float() ** 2)`` over the tensors ``xs``, a 0-dim float32
+    tensor (the square of a global norm). DTensors split or whole, none
+    holding partial sums, on one mesh: each rank sums the squares of its
+    own shards; the sums of the tensors split over the same mesh dims
+    are added and all-reduced over those dims (one 4-byte all-reduce per
+    mesh dim; tensors whole everywhere need none), and the result is
+    whole on every rank. DTensor's own rule for stacking scalars of
+    different layouts is then never asked. Anything else is the plain
+    sum, stacked."""
+    from torch.distributed._functional_collectives import all_reduce
+    from torch.distributed.tensor import DTensor, Replicate
+    if not (xs and all(_is_dtensor(x) and x.device_mesh == xs[0].device_mesh
+                       and not any(p.is_partial() for p in x.placements)
+                       for x in xs)):
+        return torch.stack([torch.sum(torch.square(x.float()))
+                            for x in xs]).sum()
+    mesh = xs[0].device_mesh
+    groups = {}
+    for x in xs:
+        dims = tuple(i for i, p in enumerate(x.placements)
+                     if not p.is_replicate())
+        groups.setdefault(dims, []).append(
+            torch.sum(torch.square(x.to_local().float())))
+    total = None
+    for dims, sums in sorted(groups.items()):
+        s = torch.stack(sums).sum()
+        for d in dims:
+            s = all_reduce(s, "sum", (mesh, d))
+        total = s if total is None else total + s
+    return DTensor.from_local(total, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)

@@ -53,15 +53,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "granite-3-2b"
 TINY = dict(n_layers=2, d_model=128, n_heads=16, n_kv_heads=8, head_dim=8,
             d_ff=256, vocab=512)
-# one attention chunk (512 tokens); batch 64 splits over 32 data ranks
+# one attention chunk (512 tokens); batch 64 splits over 32 data ranks;
+# the decode step over a cache of 512 (+ margin) slots
 SHAPES = {"train_s512": (512, 64, "train"),
-          "prefill_s512": (512, 64, "prefill")}
+          "prefill_s512": (512, 64, "prefill"),
+          "decode_s512": (512, 64, "decode")}
 GAN_BATCH = 2
 REF_TOL = 0.01
 MESH_TOL = 0.02
 # cards x per-rank / host FLOPs of the tiny train step on the 1-pod mesh
 # (the replicated MLP ``wo``, module docstring)
 TRAIN_MESH_RATIO = 1.1944444
+# and of its decode step (``test_decode_mesh_flops``)
+DECODE_MESH_RATIO = 1.0
 TIMEOUT = 600
 # the MoE and xLSTM families at their smoke configs: granite-moe with 8
 # experts (expert parallel on the 8-way model axis, one per rank) and 8
@@ -77,7 +81,9 @@ FAMILIES = {"granite-moe-1b-a400m": {"n_experts": 8, "n_heads": 8,
 # its rank-local product (``dtensor_ops.rows_in``), whose weight gradient
 # DTensor's rules had contracted whole on every rank
 FAMILY_MESH_RATIO = {("xlstm-350m", "train_s512"): 3.0402169,
-                     ("xlstm-350m", "prefill_s512"): 3.1986852}
+                     ("xlstm-350m", "prefill_s512"): 3.1986852,
+                     ("xlstm-350m", "decode_s512"): 2.9553919,
+                     ("granite-moe-1b-a400m", "decode_s512"): 1.0099668}
 
 
 # ---------------------------------------------------------------------------
@@ -218,6 +224,10 @@ def _ref_lm_flops(arch=ARCH, over=None):
             jp = jax.make_jaxpr(step)(params, jax.eval_shape(opt_init,
                                                              params),
                                       spec["batch"])
+        elif kind == "decode":
+            jp = jax.make_jaxpr(lambda p, t, c: RT.decode_step(
+                cfg, p, t, c, force_window=spec["force_window"]))(
+                    params, spec["token"], spec["cache"])
         else:
             jp = jax.make_jaxpr(lambda p, b: RT.prefill(
                 cfg, p, b["tokens"]))(params, spec["batch"])
@@ -403,6 +413,23 @@ def test_production_mesh_flops(runs):
     assert abs(ratio / TRAIN_MESH_RATIO - 1) < MESH_TOL, ratio
 
 
+def test_decode_mesh_flops(runs):
+    """The tiny decode step on the 256-card mesh: cards x per-rank FLOPs
+    equal the host count, nothing repeated across the model axis. The
+    decode block takes the prefill's layout sites (its sublayer inputs
+    ``resid_inner``, their outputs joining the residual stream as
+    ``resid``), so the q/k/v projections contract the norm's output,
+    whole on the model axis, with the heads' split of their weights.
+    Before, DTensor's rules chose that input's layout: the projections
+    ran on every rank of the model axis here (1.727), and what each
+    torch version left of the sums of partial products differed."""
+    host = runs["port"]["host/decode_s512"]
+    prod = runs["port"]["1pod/decode_s512"]
+    assert prod["chips"] == 256
+    ratio = prod["chips"] * prod["cost"]["flops"] / host["cost"]["flops"]
+    assert abs(ratio / DECODE_MESH_RATIO - 1) < MESH_TOL, ratio
+
+
 def test_train_step_collectives(runs):
     coll = runs["port"]["1pod/train_s512"]["collectives"]
     assert coll.get("all-reduce", 0) > 0
@@ -487,15 +514,23 @@ def test_family_production_mesh_flops(runs, arch, name):
     """Cards x per-rank FLOPs against the host count on the 256-card
     mesh. The MoE within ``MESH_TOL``: each rank runs its own batch rows
     through its own expert (no expert's work repeated across the model
-    axis), its 8 heads split 8 ways; only the router repeats (1 %). The
-    xLSTM at its measured ratio: its mLSTM's 2 heads stay whole on every
-    rank of the 8-way model axis (``policy.sanitize``), so the block's
-    q/k/v/gate projections and its per-token loop run 8 times over
-    (0.316 of the host count: 1 + 7 x 0.316 = 3.2 for prefill; the
-    backward and the checkpoint's recomputation repeat them too), as the
-    full config's 4 heads do; its out projection splits ``hd`` and the
-    sLSTM its hidden units (its output gate, whose weight splits
-    d_model, on each rank's shards: ``dtensor_ops.rows_in``)."""
+    axis), its 8 heads split 8 ways; only the router repeats (1 %, the
+    decode step's ratio pinned at 1.00997). The xLSTM at its measured
+    ratio: its mLSTM's 2 heads stay whole on every rank of the 8-way
+    model axis (``policy.sanitize``), so the block's q/k/v/gate
+    projections and its per-token loop run 8 times over (0.316 of the
+    host count: 1 + 7 x 0.316 = 3.2 for prefill; the backward and the
+    checkpoint's recomputation repeat them too), as the full config's 4
+    heads do; its out projection splits ``hd`` and the sLSTM its hidden
+    units (its output gate, whose weight splits d_model, on each rank's
+    shards: ``dtensor_ops.rows_in``). At decode the same: the mLSTM's
+    five projections and its one-step cell (``dtensor_ops.local_step``)
+    run 8 times over, 0.2794 of the host count (1 + 7 x 0.2794 = 2.955),
+    nothing else repeats. Before the decode block took the prefill's
+    layout sites, DTensor's rules chose the layout of the norms' outputs
+    there, and the tiny granite-moe's q/k/v projections and the xLSTM's
+    sLSTM gate projections ran on every rank of the model axis as well
+    (2.126 and 5.284), by rules that differ by torch version."""
     host = runs["port"][f"host/{arch}/{name}"]
     prod = runs["port"][f"1pod/{arch}/{name}"]
     assert prod["chips"] == 256 and "error" not in prod
@@ -542,7 +577,7 @@ def test_pair_past_its_limit_is_an_error_record():
 MOE_PEAK_SPLIT = 1.25
 
 
-@pytest.mark.parametrize("name", list(SHAPES))
+@pytest.mark.parametrize("name", ["train_s512", "prefill_s512"])
 def test_moe_buffers_split_over_the_mesh(runs, name):
     """The rank-local expert dispatch holds each card's own batch rows
     and experts of the ``[B, S, E, C]`` dispatch and combine buffers, so
@@ -568,3 +603,62 @@ def test_step_replay_counts_every_step(runs):
     assert abs(got / want - 1) < 1e-3, (got, want)
     got, want = rep["memory"]["peak_bytes"], every["memory"]["peak_bytes"]
     assert abs(got / want - 1) < 0.03, (got, want)
+
+
+def _site_record(torch_version, sites, **totals):
+    rec = {"arch": "xlstm-350m", "shape": "decode_32k", "multi_pod": False,
+           "flops": 0.0, "peak_bytes": 100, "collectives": {},
+           "torch": torch_version, "sites": sites}
+    rec.update(totals)
+    return rec
+
+
+def test_dryrun_peak_diff(tmp_path, capsys):
+    """``scripts/dryrun_peak.py --diff A B`` on two hand-made ``--by-site``
+    records: the totals that differ, then each site whose FLOPs or
+    collective bytes of a kind differ, summed over its DTensor and local
+    operations (named differently by two torch versions), largest
+    difference first; exit 1, and 0 on equal records."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "dryrun_peak", os.path.join(ROOT, "scripts", "dryrun_peak.py"))
+    peak = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(peak)
+    cell = "models/recurrent.py:170 _mlstm_cell"
+    a = _site_record("2.11.0", [
+        {"site": cell, "dtensor_op": "mul", "op": "all_reduce",
+         "all-reduce": 5e7, "all-reduce calls": 12},
+        {"site": "models/recurrent.py:145 _mlstm_qkvg", "dtensor_op": "bmm",
+         "op": "bmm", "flops": 8.0},
+        {"site": "models/recurrent.py:146 _mlstm_qkvg", "dtensor_op": "bmm",
+         "op": "bmm", "flops": 8.0}],
+        flops=16.0, collectives={"all-reduce": 5e7})
+    b = _site_record("2.13.0", [
+        {"site": "models/transformer.py:332 block_decode",
+         "dtensor_op": "copy_", "op": "all_reduce", "all-reduce": 5e7,
+         "all-reduce calls": 24},
+        {"site": "models/recurrent.py:145 _mlstm_qkvg", "dtensor_op": "mm",
+         "op": "mm", "flops": 5.0},
+        {"site": "models/recurrent.py:145 _mlstm_qkvg", "dtensor_op": "bmm",
+         "op": "bmm", "flops": 3.0},
+        {"site": "models/recurrent.py:146 _mlstm_qkvg", "dtensor_op": "bmm",
+         "op": "bmm", "flops": 1.0},
+        {"site": cell, "dtensor_op": "mul", "op": "reduce_scatter_tensor",
+         "reduce-scatter": 4.0, "reduce-scatter calls": 1}],
+        flops=9.0, collectives={"all-reduce": 5e7, "reduce-scatter": 4.0})
+    assert peak.diff_records(a, b) == [
+        ("total", "flops", 16.0, 9.0),
+        ("total", "reduce-scatter", 0.0, 4.0),
+        (cell, "all-reduce", 5e7, 0.0),
+        ("models/transformer.py:332 block_decode", "all-reduce", 0.0, 5e7),
+        ("models/recurrent.py:146 _mlstm_qkvg", "flops", 8.0, 1.0),
+        (cell, "reduce-scatter", 0.0, 4.0)]
+    pa, pb = tmp_path / "a.log", tmp_path / "b.log"
+    pa.write_text("xlstm-350m x decode_32k: ...\n" + json.dumps(a) + "\n")
+    pb.write_text(json.dumps(b) + "\n")
+    assert peak.main(["--diff", str(pa), str(pb)]) == 1
+    printed = capsys.readouterr().out
+    assert printed.splitlines()[-1] == "6 differences"
+    assert f"  {cell}  all-reduce: A 5e+07  B 0  (B - A -5e+07)" in printed
+    assert peak.main(["--diff", str(pa), str(pa)]) == 0
+    assert capsys.readouterr().out.splitlines()[-1] == "0 differences"

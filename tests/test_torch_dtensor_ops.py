@@ -36,6 +36,19 @@ difference of the gathered (``full_tensor``) results:
   DTensor rules choose (the product and its gradients on each rank's
   shards: one reduce-scatter forward, one all-gather backward, the
   input's gradient a partial sum).
+* the decode steps (``recurrent.mlstm_step``, ``slstm_step``) alone, at
+  batch 4 (rows split over the data axis) and batch 1 (whole on it, as
+  long_500k's), from a state laid out as the dry run's cache: value, new
+  state and every gradient (input, parameters, state); the one-step
+  branch (``dtensor_ops.local_step``) taken and no DTensor operation
+  inside the cells; one mLSTM step's FLOPs and collectives per rank,
+  exactly; the tiny xLSTM's decode from the plain prefill's cache (its
+  logits and written cache, the branch in every recurrent layer);
+* the tiny xLSTM's and granite's train step with Adam: every gradient
+  that reaches the optimizer has its parameter's placements
+  (``dtensor_ops.to_param_layout``), and the update's collectives per
+  rank are exact (only the global norm's sums, ``dtensor_ops.
+  sum_squares``).
 
 Tolerance: 2e-6 of the largest magnitude of the plain result, for
 values and gradients in float32 (the ranks sum partial products in
@@ -538,6 +551,223 @@ def _rows_in(mesh, out):
     out["rows_in/counts"] = counts
 
 
+STEP_BATCHES = (4, 1)             # rows split over data, and whole
+
+
+def _decode_steps(mesh, out):
+    """The mLSTM's and sLSTM's decode steps alone, and the tiny xLSTM's
+    decode, on the mesh against the plain path; the one-step branch and
+    the DTensor operations inside the cells counted; one mLSTM step's
+    counts per rank."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import recurrent as R
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import dtensor_ops as dt
+    from repro_torch.sharding.policy import (ShardingPolicy, act_spec,
+                                             activation_sharding, sanitize,
+                                             to_placements, tree_param_specs)
+    policy = ShardingPolicy()
+    taken = {"step": 0}
+    step_plan = dt._step_plan
+
+    def counted(*a):
+        r = step_plan(*a)
+        taken["step"] += r is not None
+        return r
+    inner = _DTensorOps()
+    cells = {"_mlstm_cell": R._mlstm_cell, "_slstm_cell": R._slstm_cell}
+    dt._step_plan = counted
+    for name, fn in cells.items():
+        setattr(R, name, inner.wrap(fn))
+
+    def dist(x, kind):
+        spec = sanitize(mesh, x.shape, act_spec(mesh, policy, kind))
+        return distribute_tensor(x, mesh, to_placements(mesh, spec))
+
+    try:
+        for case in RECURRENT_CASES:
+            cfg = _tiny(case)
+            for kind in ("mlstm", "slstm"):
+                if case == "mlstm_whole" and kind == "slstm":
+                    continue            # the same sLSTM as "mlstm_split"
+                g = torch.Generator().manual_seed(6)
+                params = {kind: T.init_block(cfg, kind, g, "cpu")[kind]}
+                dparams = _dist(mesh, params,
+                                tree_param_specs(mesh, policy, params))
+                for b in STEP_BATCHES:
+                    # a state from a few tokens, laid out as the cache's
+                    seq = torch.randn(b, 3, cfg.d_model, generator=g)
+                    state = getattr(R, f"{kind}_seq")(params[kind], seq)[1]
+                    x = torch.randn(b, 1, cfg.d_model, generator=g)
+                    w = torch.randn(b, 1, cfg.d_model, generator=g)
+                    ws = {n: torch.randn(t.shape, generator=g)
+                          for n, t in state.items()}
+                    step = getattr(R, f"{kind}_step")
+
+                    def run(p, x, st):
+                        p = T.tree_map(
+                            lambda t: t.detach().requires_grad_(True), p)
+                        x = x.detach().requires_grad_(True)
+                        st = {n: t.detach().requires_grad_(True)
+                              for n, t in st.items()}
+                        o, new = step(dt.fsdp_gather(p)[kind], x, st)
+                        loss = (_whole(o) * w).sum() + sum(
+                            (_whole(new[n]) * ws[n]).sum() for n in new)
+                        flat = ([x] + list(T.tree_leaves(p))
+                                + [st[n] for n in sorted(st)])
+                        return o, new, torch.autograd.grad(loss, flat)
+
+                    o0, new0, g0 = run(params, x, state)
+                    before = taken["step"]
+                    with activation_sharding(mesh, policy), \
+                            implicit_replication():
+                        o1, new1, g1 = run(
+                            dparams, dist(x, "resid_inner"),
+                            {n: dist(t, "state") for n, t in state.items()})
+                    key = f"{case}/{kind}_step/b{b}"
+                    out[f"{key}/value"] = _rel(o1, o0)
+                    out[f"{key}/state"] = _rel(new1, new0)
+                    out[f"{key}/grads"] = _rel(list(g1), list(g0))
+                    out[f"taken/{key}"] = float(taken["step"] - before)
+                    if kind == "mlstm" and b == STEP_BATCHES[0]:
+                        out[f"{case}/mlstm_step/counts"] = _step_counts(
+                            mesh, policy, dparams, dist(x, "resid_inner"),
+                            {n: dist(t, "state") for n, t in state.items()})
+            # the tiny xLSTM's decode from the plain prefill's cache
+            g = torch.Generator().manual_seed(7)
+            params = T.init_lm(cfg, g, device="cpu")
+            dparams = _dist(mesh, params,
+                            tree_param_specs(mesh, policy, params))
+            tokens = torch.randint(0, cfg.vocab, (B, S), generator=g)
+            _, cache0 = T.prefill(cfg, params, tokens)
+            dcache = _dist(mesh, _clone(cache0),
+                           D._cache_shardings(mesh, policy, cache0))
+            before = taken["step"]
+            for i in range(2):
+                token = torch.randint(0, cfg.vocab, (B,), generator=g)
+                dtoken = distribute_tensor(
+                    token, mesh, to_placements(mesh, sanitize(
+                        mesh, (B,), (D._dpa(mesh),))))
+                logits0, cache0 = T.decode_step(cfg, params, token, cache0)
+                with activation_sharding(mesh, policy), \
+                        implicit_replication():
+                    logits1, dcache = T.decode_step(cfg, dparams, dtoken,
+                                                    dcache)
+                out[f"{case}/decode{i}/logits"] = _rel(logits1, logits0)
+                out[f"{case}/decode{i}/cache"] = _rel(dcache, cache0)
+            out[f"taken/{case}/decode"] = float(taken["step"] - before)
+    finally:
+        dt._step_plan = step_plan
+        for name, fn in cells.items():
+            setattr(R, name, fn)
+    out["inner/decode/dtensor_ops"] = float(inner.n)
+    out["inner/decode/calls"] = float(inner.calls)
+
+
+def _step_counts(mesh, policy, dparams, dx, dstate):
+    """One mLSTM decode step's FLOPs and collectives on this rank (the
+    dry run's ``OpCounter``), as the decode block runs it: no gradients,
+    its parameters gathered outside."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import recurrent as R
+    from repro_torch.sharding import dtensor_ops as dt
+    from repro_torch.sharding.policy import activation_sharding
+    with torch.no_grad(), activation_sharding(mesh, policy), \
+            implicit_replication():
+        p = dt.fsdp_gather(dparams)["mlstm"]
+        with D.OpCounter() as c:
+            R.mlstm_step(p, dx, dstate)
+    return c.flops, dict(c.collectives), dict(c.calls)
+
+
+def _optimizer(mesh, out):
+    """The tiny xLSTM's and granite's train step with Adam on the mesh:
+    the gradients' placements where they reach the update, the update's
+    collectives per rank, the loss and the new parameters against the
+    plain step."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import adam
+    from repro_torch.sharding.policy import (ShardingPolicy,
+                                             activation_sharding,
+                                             tree_param_specs)
+    policy = ShardingPolicy()
+    for name, cfg in (("xlstm", _tiny("mlstm_whole")),
+                      ("granite", dataclasses.replace(
+                          get_config("granite-3-2b"), **TINY))):
+        opt_init, update = adam(LR, grad_clip=1.0)
+        seen = {}
+
+        def watched(state, grads, params):
+            seen["mismatch"] = [
+                k for k, gr in _leaves(grads)
+                if tuple(gr.placements) != tuple(dict(_leaves(params))[k]
+                                                 .placements)]
+            with D.OpCounter() as c:
+                r = update(state, grads, params)
+            seen["counts"] = (dict(c.collectives), dict(c.calls))
+            return r
+        g = torch.Generator().manual_seed(8)
+        params = T.init_lm(cfg, g, device="cpu")
+        batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g),
+                 "labels": torch.randint(0, cfg.vocab, (B, S), generator=g)}
+        dparams = _dist(mesh, params, tree_param_specs(mesh, policy, params))
+        dbatch = _dist(mesh, batch, D._batch_shardings(mesh, policy, batch))
+        step0, _ = T.make_train_step(cfg, (opt_init, update))
+        p0, _, m0 = step0(params, opt_init(params), batch)
+        step1, _ = T.make_train_step(cfg, (opt_init, watched))
+        with activation_sharding(mesh, policy), implicit_replication():
+            p1, _, m1 = step1(dparams, opt_init(dparams), dbatch)
+        out[f"{name}_adam/loss"] = _rel(m1["loss"], m0["loss"])
+        out[f"{name}_adam/params_abs"] = _abs(p1, p0)
+        out[f"{name}_adam/mismatch"] = seen["mismatch"]
+        out[f"{name}_adam/counts"] = seen["counts"]
+
+
+def _moe_counts(mesh, out):
+    """The MoE layer alone (``moe_apply`` and its aux term), forward and
+    backward: its collectives on this rank (the dry run's counter)."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import dtensor_ops as dt
+    from repro_torch.sharding.policy import (ShardingPolicy, act_spec,
+                                             activation_sharding, sanitize,
+                                             to_placements, tree_param_specs)
+    policy = ShardingPolicy()
+    for case in MOE_CASES:
+        cfg = _tiny(case)
+        g = torch.Generator().manual_seed(3)
+        params = {"moe": T.init_block(cfg, "attn", g, "cpu")["moe"]}
+        x = torch.randn(B, S, cfg.d_model, generator=g)
+        dparams = _dist(mesh, params, tree_param_specs(mesh, policy, params))
+        dx = distribute_tensor(x, mesh, to_placements(mesh, sanitize(
+            mesh, x.shape, act_spec(mesh, policy, "resid_inner"))))
+        dx.requires_grad_(True)
+        with activation_sharding(mesh, policy), implicit_replication():
+            p = T.tree_map(lambda t: t.detach().requires_grad_(True),
+                           dt.fsdp_gather(dparams))["moe"]
+            with D.OpCounter() as c:
+                o, aux = M.moe_apply(p, dx, top_k=cfg.moe_top_k,
+                                     capacity_factor=cfg.capacity_factor,
+                                     mlp_variant=cfg.mlp_variant)
+                term = T._moe_aux_loss(aux)
+            fwd = (dict(c.collectives), dict(c.calls))
+            grads = [distribute_tensor(torch.ones(t.shape), mesh,
+                                       list(t.placements)) for t in (o, term)]
+            with D.OpCounter() as c:
+                torch.autograd.backward([o, term], grads)
+            bwd = (dict(c.collectives), dict(c.calls))
+        out[f"{case}/moe_counts"] = {"forward": fwd, "backward": bwd}
+
+
 def _rank_body():
     from torch.distributed.device_mesh import init_device_mesh
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
@@ -547,6 +777,9 @@ def _rank_body():
     _split_lm(mesh, out)
     _branches(mesh, out)
     _rows_in(mesh, out)
+    _decode_steps(mesh, out)
+    _optimizer(mesh, out)
+    _moe_counts(mesh, out)
     return out
 
 
@@ -573,7 +806,13 @@ VALUES = ["embedding/value", "embedding/grad", "pad/value",
                  ("mlstm/value", "mlstm/aux", "mlstm/grads")
                  + (("slstm/value", "slstm/aux", "slstm/grads")
                     if case == "mlstm_split" else ()))
-    + ("lm/loss", "lm/grads")]
+    + ("lm/loss", "lm/grads")] + [
+    f"{case}/{kind}_step/b{b}/{part}" for case in RECURRENT_CASES
+    for kind in (("mlstm", "slstm") if case == "mlstm_split" else ("mlstm",))
+    for b in STEP_BATCHES for part in ("value", "state", "grads")] + [
+    f"{case}/decode{i}/{part}" for case in RECURRENT_CASES for i in range(2)
+    for part in ("logits", "cache")] + [
+    f"{name}_adam/loss" for name in ("xlstm", "granite")]
 
 
 @pytest.mark.parametrize("key", VALUES)
@@ -582,9 +821,11 @@ def test_dtensor_path_matches_plain(ranks, key):
         assert out[key] <= REL_TOL, (r, key, out[key])
 
 
-def test_adam_step_within_its_bound(ranks):
+@pytest.mark.parametrize("key", ["adam_step", "xlstm_adam",
+                                 "granite_adam"])
+def test_adam_step_within_its_bound(ranks, key):
     for r, out in enumerate(ranks):
-        assert out["adam_step/params_abs"] <= ADAM_TOL, (r, out)
+        assert out[f"{key}/params_abs"] <= ADAM_TOL, (r, key, out)
 
 
 @pytest.mark.parametrize("key", ["embedding/partial", "pad/layout_kept",
@@ -627,12 +868,13 @@ def test_rank_local_branch_in_every_layer(ranks, case):
         assert out[f"taken/{case}/lm"] == 2 * layers, case
 
 
-@pytest.mark.parametrize("key", ["experts", "recurrence"])
+@pytest.mark.parametrize("key", ["experts", "recurrence", "decode"])
 def test_no_dtensor_op_inside_the_loops(ranks, key):
     """No DTensor operation runs inside the expert einsums (``route``,
-    ``expert_ffn``) or a recurrence's steps (``_mlstm_cell``,
-    ``_slstm_cell``) on the mesh: their inputs are each rank's own
-    shards, whatever DTensor's view rules of the torch version."""
+    ``expert_ffn``), a recurrence's steps (``_mlstm_cell``,
+    ``_slstm_cell``) or the decode steps' cells on the mesh: their
+    inputs are each rank's own shards, whatever DTensor's view rules of
+    the torch version."""
     for out in ranks:
         assert out["inner/control/dtensor_ops"] >= 1.0
         assert out[f"inner/{key}/calls"] > 0, key
@@ -662,3 +904,110 @@ def test_rows_in_counts(ranks, phase, flops, collectives):
         assert got_flops == flops
         assert {k: (got_bytes[k], got_calls[k]) for k in got_bytes} == \
             collectives
+
+
+@pytest.mark.parametrize("case", list(RECURRENT_CASES))
+def test_decode_step_on_the_ranks_shards(ranks, case):
+    """The one-step branch (``dtensor_ops.local_step``) is taken by every
+    decode step alone, at batch 4 (rows split over the data axis) and at
+    batch 1 (whole on it, the layout of long_500k, where DTensor's own
+    rules are what it replaces), and in each recurrent layer of the tiny
+    xLSTM's decode: 2 layers x 2 tokens."""
+    kinds = ("mlstm", "slstm") if case == "mlstm_split" else ("mlstm",)
+    for out in ranks:
+        for kind in kinds:
+            for b in STEP_BATCHES:
+                assert out[f"taken/{case}/{kind}_step/b{b}"] == 1.0, (kind, b)
+        assert out[f"taken/{case}/decode"] == 4.0, case
+
+
+@pytest.mark.parametrize("case,flops,collectives", [
+    # 3 heads stay whole on the 2-way model axis, as xlstm-350m's 4 do on
+    # its 8-way one: per rank its 2 rows, every head. q/k/v/o: 4 x 2 x 2
+    # x 32 x (3 x 8); the gates 2 x 2 x 32 x (3 x 2); the cell's outer
+    # product and C q: 2 x 2 x 2 x 3 x 8 x 8, n q: 2 x 2 x 3 x 8; the
+    # output projection on the rank's half of hd: 2 x 2 x 3 x 4 x 32,
+    # its partial sums all-reduced over the model axis ([2, 1, 32]
+    # float32); the state is written as the cache holds it
+    ("mlstm_whole", 4 * 2 * 2 * 32 * 24 + 2 * 2 * 32 * 6
+     + 2 * (2 * 2 * 3 * 64) + 2 * 2 * 3 * 8 + 2 * 2 * 3 * 4 * 32,
+     {"all-reduce": (2 * 32 * 4, 1)}),
+    # 4 heads split 2 ways: per rank 2 rows x 2 heads; the gates' weight
+    # whole (every head, then the rank's slice); the output projection
+    # takes the weight split by heads (on a CPU mesh an all-to-all runs
+    # as an all-gather of the whole [4, 8, 32] float32 weight)
+    ("mlstm_split", 4 * 2 * 2 * 32 * 16 + 2 * 2 * 32 * 8
+     + 2 * (2 * 2 * 2 * 64) + 2 * 2 * 2 * 8 + 2 * 2 * 2 * 8 * 32,
+     {"all-gather": (4 * 8 * 32 * 4, 1), "all-reduce": (2 * 32 * 4, 1)})])
+def test_mlstm_step_counts(ranks, case, flops, collectives):
+    """One mLSTM decode step on a (data 2, model 2) mesh at d_model 32,
+    hd 8, batch 4: per rank, the FLOPs and collectives that the dry
+    run's counter records, exactly. The projections run on the rank's
+    rows with the heads' split of their weights, the cell on the rank's
+    rows and heads (``dtensor_ops.local_step``), the output projection
+    on its shards (``heads_out``). On torch 2.11 DTensor's own rules
+    ran the cell's products on partial sums and all-reduced the state
+    inside it; 2.13's at the cache write (PERF.md)."""
+    for out in ranks:
+        got_flops, got_bytes, got_calls = out[f"{case}/mlstm_step/counts"]
+        assert got_flops == flops
+        assert {k: (got_bytes[k], got_calls[k]) for k in got_bytes} == \
+            collectives
+
+
+@pytest.mark.parametrize("name,collectives", [
+    # groups by the mesh dims that split a parameter: whole (the norms),
+    # split over both axes: 2 all-reduces of one float32 each
+    ("granite", {"all-reduce": (2 * 4, 2)}),
+    # and over the data axis alone (the mLSTM's 3 heads whole on the
+    # model axis) and the model axis alone (the sLSTM's ``w_o``): 4
+    ("xlstm", {"all-reduce": (4 * 4, 4)})])
+def test_optimizer_sees_the_parameters_layout(ranks, name, collectives):
+    """The tiny LMs' train step on the mesh: every gradient reaches
+    Adam with its parameter's placements (``dtensor_ops.to_param_layout``
+    reduce-scatters or all-reduces the partial sums autograd leaves), so
+    the update's elementwise ops run on the parameters' shards with no
+    collective; the global norm sums each rank's shards and all-reduces
+    one float32 per mesh dim of each group of parameters split alike
+    (``dtensor_ops.sum_squares``). Per rank, exactly. On torch 2.11
+    DTensor's own rules all-reduced the partial gradients whole inside
+    the update (51.2 MB per card on xlstm-350m's train_4k), on 2.13 they
+    reduce-scattered them (PERF.md)."""
+    for out in ranks:
+        assert out[f"{name}_adam/mismatch"] == [], out[f"{name}_adam/mismatch"]
+        got_bytes, got_calls = out[f"{name}_adam/counts"]
+        assert {k: (got_bytes[k], got_calls[k]) for k in got_bytes} == \
+            collectives
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+@pytest.mark.parametrize("phase,collectives", [
+    # the experts' partial outputs reduce-scattered onto the residual's
+    # sequence split ([2, 4, 32] float32); the batch means of the top-1
+    # choices and of the probabilities whole ([E] float32 each), and
+    # the z-loss where the aux term takes it (one float32)
+    ("forward", lambda E: {"reduce-scatter": (2 * 4 * 32 * 4, 1),
+                           "all-reduce": (2 * E * 4 + 4, 3)}),
+    # the output's gradient gathered whole along the sequence ([2, 8,
+    # 32]); the gates' gradient, partial over the model axis, summed in
+    # their layout ([2, 8, 2]); the tokens' gradient from the experts
+    # reduce-scattered onto the residual's split, where the router's
+    # (whole) takes its slice without a collective
+    ("backward", lambda E: {"all-gather": (2 * 8 * 32 * 4, 1),
+                            "all-reduce": (2 * 8 * 2 * 4, 1),
+                            "reduce-scatter": (2 * 4 * 32 * 4, 1)})])
+def test_moe_layer_counts(ranks, case, phase, collectives):
+    """The MoE layer (``moe_apply`` and ``transformer._moe_aux_loss``) on
+    a (data 2, model 2) mesh at d_model 32, batch 4 x 8 tokens, top-2
+    of 4 experts (expert parallel) or 3 (``d_ff`` split): per rank, the
+    collectives the dry run's counter records, exactly. The layout of
+    every gradient the router and the aux losses meet is named
+    (``dtensor_ops.grad_as_resid``, ``keep_grad_layout``, ``whole``,
+    ``local_rows`` for the top-k); on torch 2.11 DTensor's own rules
+    instead gathered the whole batch's scores for the sort's backward
+    (PERF.md)."""
+    E = MOE_CASES[case]
+    for out in ranks:
+        got_bytes, got_calls = out[f"{case}/moe_counts"][phase]
+        assert {k: (got_bytes[k], got_calls[k]) for k in got_bytes} == \
+            collectives(E), (case, phase)
