@@ -2835,9 +2835,13 @@ def device_profile(fn, per: int = 1, top_n: int = 6) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # the program's spans (record_function ranges) also appear on the
+    # device's timeline: spans, not device work
     dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+           and not e.is_user_annotation]
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
     busy = busy_us((e.time_range.start, e.time_range.end)
                    for e in events) / 1e6
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:top_n]

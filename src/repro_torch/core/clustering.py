@@ -6,7 +6,9 @@ k-means++ seeding, a Lloyd loop with the convergence exit and the
 distinct farthest-point re-seed of empty clusters, silhouette selection
 of k over [2, k_selection_bound] (first maximum wins, k = 1 below
 ``min_silhouette``), and first-occurrence label canonicalization. The
-assignment step goes through kernel K2 behind ``use_kernel``.
+assignment step goes through kernel K2 behind ``use_kernel``. Every
+device value the device path reads on the host goes through
+``trace.readback``, which counts it by site.
 
 The reference seeds k-means++ from ``jax.random.categorical``, which
 torch cannot reproduce. ``kmeans`` and ``cluster_activations``
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.kernels import ops as kops
 
 
@@ -82,13 +85,13 @@ def kmeans_pp_init(x: torch.Tensor, k: int, gen: torch.Generator
     centers = torch.full((k,) + x.shape[1:], float("inf"), dtype=x.dtype,
                          device=x.device)
     first = torch.randint(0, n, (1,), generator=gen, device=x.device)
-    centers[0] = x[first[0]]
+    centers[0] = x[int(trace.readback("kmeans_pp.seed", first[0]))]
     for j in range(1, k):
         d2 = ((x[:, None, :] - centers[None]) ** 2).sum(-1).min(1).values
         # degenerate (all points on chosen centres): uniform draw
         probs = torch.where(d2.sum() > 1e-12, d2, torch.ones_like(d2))
         idx = torch.multinomial(probs, 1, generator=gen)
-        centers[j] = x[idx[0]]
+        centers[j] = x[int(trace.readback("kmeans_pp.seed", idx[0]))]
     return centers
 
 
@@ -109,7 +112,8 @@ def kmeans(x: torch.Tensor, k: int, *, init_centers: torch.Tensor = None,
     labels = torch.zeros(n, dtype=torch.int32, device=x.device)
     for it in range(iters):
         new_labels = _assign(x, centers, use_kernel)
-        if it > 0 and bool(torch.equal(new_labels, labels)):
+        if it > 0 and bool(trace.readback("kmeans.converged",
+                                          (new_labels == labels).all())):
             break
         onehot = F.one_hot(new_labels.long(), k).to(x.dtype)      # [N, k]
         counts = onehot.sum(0)
@@ -124,7 +128,9 @@ def kmeans(x: torch.Tensor, k: int, *, init_centers: torch.Tensor = None,
         neg_inf = torch.full_like(d2u, -float("inf"))
         for c in range(k):                       # k small: unrolled
             empty = counts[c] == 0
-            idx = torch.argmax(torch.where(taken, neg_inf, d2u))
+            idx = int(trace.readback(
+                "kmeans.reseed", torch.argmax(torch.where(taken, neg_inf,
+                                                          d2u))))
             new[c] = torch.where(empty, x[idx], new[c])
             taken[idx] = taken[idx] | empty
         centers, labels = new, new_labels
@@ -151,8 +157,9 @@ def silhouette(x: torch.Tensor, labels: torch.Tensor,
     denom = torch.maximum(a, b)
     s = torch.where((own <= 1) | (denom <= 0), torch.zeros_like(a),
                     (b - a) / denom)
-    valid = bool((counts > 0).sum() >= 2) and n >= 3
-    return (s.mean() if valid else torch.tensor(-1.0, device=x.device)
+    valid = bool(trace.readback("silhouette.valid",
+                                (counts > 0).sum() >= 2)) and n >= 3
+    return (s.mean() if valid else torch.full((), -1.0, device=x.device)
             ).to(torch.float32)
 
 
@@ -181,12 +188,14 @@ def cluster_activations(acts: torch.Tensor, *, k: Optional[int] = None,
         if k <= 1:
             return torch.zeros(K, dtype=torch.int32, device=acts.device), 1, 0.0
         labels, sil = run(k)
-        return labels, k, float(sil)
+        return labels, k, float(trace.readback("cluster.select", sil))
     upper = k_selection_bound(K, k_max=k_max)
     cands = [run(kk) for kk in range(2, upper + 1)]
     sils = torch.stack([s for _, s in cands])
-    best = int(torch.argmax(sils))               # first max wins
-    sil = float(sils[best])
+    best = torch.argmax(sils).reshape(1)         # first max wins
+    best, sil = trace.readback("cluster.select", torch.cat(
+        [best.to(sils.dtype), sils.index_select(0, best)])).tolist()
+    best = int(best)
     if sil < min_silhouette:
         return torch.zeros(K, dtype=torch.int32, device=acts.device), 1, 0.0
     return cands[best][0].to(torch.int32), best + 2, sil

@@ -83,14 +83,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-import time
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, trace
 from repro_torch.core import kld as kld_mod
 from repro_torch.core.clustering import (cluster_activations,
                                          cluster_activations_np,
@@ -244,7 +243,8 @@ def _fits(buf: torch.Tensor, x) -> bool:
 
 
 def _host(mask: Optional[torch.Tensor]) -> Optional[np.ndarray]:
-    return None if mask is None else mask.cpu().numpy()
+    return (None if mask is None
+            else trace.readback("cohort.host", mask).numpy())
 
 
 def merge_bn(updated: Dict, bn: Dict) -> Dict:
@@ -314,6 +314,10 @@ def _state_from_carry(items, step: int) -> Dict[str, Any]:
                for opt in ("opt_g", "opt_d")}}
 
 
+def _no_mark(name: str) -> None:
+    pass
+
+
 # one side stream per device for every trainer's warm-ups and captures:
 # cuBLAS keeps a workspace per (handle, stream) for the life of the
 # process, so a stream per trainer would leave one behind for each,
@@ -321,18 +325,65 @@ def _state_from_carry(items, step: int) -> Dict[str, Any]:
 _CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
 
 
+class StepClock:
+    """CUDA events at the fused step's five points (``POINTS``: its
+    start, before the batch is drawn, then after D's gradients, D's Adam
+    update, G's gradients and G's Adam update), one set of events for
+    each step of the eager warm-up and of every captured graph. In a
+    capture they become event-record nodes, which every replay records
+    again. ``sets`` holds each graph's event sets, ``last`` those of the
+    steps that ran last; ``phases()`` gives the device milliseconds
+    between the points of the last of them, once its events completed
+    (after the epoch's readback): no synchronisation of its own."""
+    POINTS = ("start", "grad_d", "adam_d", "grad_g", "adam_g")
+
+    def __init__(self):
+        self.sets: Dict[Any, List[Dict[str, Any]]] = {}
+        self.last: List[Dict[str, Any]] = []
+        self._open: Optional[List[Dict[str, Any]]] = None
+
+    @contextlib.contextmanager
+    def record(self):
+        """Yields the event sets that the steps run (warm-up) or
+        captured inside record into, one a step."""
+        self._open = []
+        try:
+            yield self._open
+        finally:
+            self._open = None
+
+    def mark(self, name: str) -> None:
+        if self._open is None:
+            return
+        if name == self.POINTS[0]:
+            self._open.append({p: torch.cuda.Event(enable_timing=True,
+                                                   external=True)
+                               for p in self.POINTS})
+        self._open[-1][name].record()
+
+    def phases(self) -> Optional[Dict[str, float]]:
+        """{grad_d, adam_d, grad_g, adam_g: device ms} of the last
+        step that ran, or None."""
+        if not self.last:
+            return None
+        ev = self.last[-1]
+        return {b: ev[a].elapsed_time(ev[b])
+                for a, b in zip(self.POINTS, self.POINTS[1:])}
+
+
 class GraphPool:
     """What the fused epochs of one trainer share on the card: the side
     stream they warm up and capture on, the private memory pool of their
     CUDA graphs, whether the eager warm-up step has run since the graphs
-    were last dropped, and the capture seconds and pool bytes so far
-    (the device memory the captures reserved)."""
+    were last dropped, the capture seconds and pool bytes so far (the
+    device memory the captures reserved) and the steps' ``StepClock``."""
 
     def __init__(self, device: torch.device):
         index = torch.device(device).index or 0
         if index not in _CAPTURE_STREAMS:
             _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
         self.stream = _CAPTURE_STREAMS[index]
+        self.clock = StepClock()
         self.clear()
 
     def clear(self) -> None:
@@ -343,6 +394,8 @@ class GraphPool:
         self.capture_s = 0.0
         self.pool_bytes = 0
         self.graphs = 0
+        self.clock.sets.clear()
+        self.clock.last = []
 
     def warm_up(self, step: Callable[[], None]) -> None:
         """One eager step on the capture stream: a real step, and the
@@ -350,50 +403,56 @@ class GraphPool:
         lazily before a capture may run them."""
         s, cur = self.stream, torch.cuda.current_stream(self.stream.device)
         s.wait_stream(cur)
-        with torch.cuda.stream(s):
+        with self.clock.record() as sets, torch.cuda.stream(s):
             step()
         cur.wait_stream(s)
+        self.clock.last = sets
         self.warm = True
 
-    def capture(self, run: Callable[[], None],
-                gen: torch.Generator) -> "torch.cuda.CUDAGraph":
-        """``run`` captured as a CUDA graph in the shared pool, with
-        ``gen`` registered so that each replay advances it as running
-        ``run`` eagerly would. A capture that fails raises."""
+    def capture(self, run: Callable[[], None], gen: torch.Generator,
+                steps: int) -> "torch.cuda.CUDAGraph":
+        """``run`` (``steps`` steps) captured as a CUDA graph in the
+        shared pool, with ``gen`` registered so that each replay advances
+        it as running ``run`` eagerly would. A capture that fails
+        raises."""
         g = torch.cuda.CUDAGraph()
         g.register_generator_state(gen)
         dev = self.stream.device
         torch.cuda.empty_cache()
         before = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(g, pool=self.pool, stream=self.stream):
-            run()
-        torch.cuda.synchronize(dev)
-        self.capture_s += time.perf_counter() - t0
+        with trace.span("huscf.graphs.capture", steps=steps) as sp:
+            with trace.paused(), self.clock.record() as sets, \
+                    torch.cuda.graph(g, pool=self.pool, stream=self.stream):
+                run()
+            torch.cuda.synchronize(dev)
+        self.capture_s += sp.seconds
         self.pool_bytes += torch.cuda.memory_reserved(dev) - before
+        self.clock.sets[g] = sets
         self.graphs += 1
         if self.pool is None:
             self.pool = g.pool()
         return g
 
-    @staticmethod
-    def replay(graphs: Sequence[Any]) -> None:
+    def replay(self, graphs: Sequence[Any]) -> None:
         """Replay ``graphs`` in order, with every host synchronisation an
         error (torch's sync debug mode) while they are launched."""
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            for g in graphs:
-                g.replay()
+            with trace.span("huscf.train_steps.launch"):
+                for g in graphs:
+                    g.replay()
         finally:
             torch.cuda.set_sync_debug_mode(mode)
+        if graphs:
+            self.clock.last = self.clock.sets[graphs[-1]]
 
 
 def make_epoch_fn(groups: Sequence[ProfileGroup], step_core: Callable,
                   sample: Callable, n_steps: int, unroll: int = 1,
                   graphs: Optional[GraphPool] = None,
-                  rows: Optional[Dict[str, torch.Tensor]] = None
-                  ) -> Callable:
+                  rows: Optional[Dict[str, torch.Tensor]] = None,
+                  mark: Callable[[str], None] = _no_mark) -> Callable:
     """The fused epoch (the reference's ``make_epoch_fn``), shared by the
     trainer's card and CPU paths.
 
@@ -417,7 +476,10 @@ def make_epoch_fn(groups: Sequence[ProfileGroup], step_core: Callable,
     every later call must pass the same carry: another raises.
 
     ``rows`` are each group's EMA rows (default: its client ids; a
-    client-sharded step's EMA holds the rank's rows only).
+    client-sharded step's EMA holds the rank's rows only). ``mark(name)``
+    is called with ``"start"`` before each step draws its batch (the
+    trainer's ``StepClock``; ``step_core`` marks the step's later
+    points).
     """
     unroll = max(1, min(n_steps, unroll))
     rows = dict(rows or {})
@@ -425,6 +487,7 @@ def make_epoch_fn(groups: Sequence[ProfileGroup], step_core: Callable,
     carry_ref: List[Any] = []
 
     def body(state, gen, ema, ema_init, losses):
+        mark("start")
         metrics, mids = step_core(state, sample(gen))
         for g in groups:
             m = mids[g.name].detach().float()
@@ -442,8 +505,9 @@ def make_epoch_fn(groups: Sequence[ProfileGroup], step_core: Callable,
                          for g in groups})
         args = (state, gen, ema, ema_init, losses)
         if graphs is None:
-            for _ in range(n_steps):
-                body(*args)
+            with trace.span("huscf.train_steps.launch"):
+                for _ in range(n_steps):
+                    body(*args)
             return losses
         carry = [x for _, x in _carry_items(state)] + [ema, ema_init, gen,
                                                         *losses.values()]
@@ -467,7 +531,8 @@ def make_epoch_fn(groups: Sequence[ProfileGroup], step_core: Callable,
                 own = (_state_from_carry(_carry_items(state), state["step"]),
                        *args[1:])
                 captured[k] = graphs.capture(
-                    lambda k=k, own=own: [body(*own) for _ in range(k)], gen)
+                    lambda k=k, own=own: [body(*own) for _ in range(k)], gen,
+                    steps=k)
         graphs.replay([captured[k] for k in sizes])
         return losses
 
@@ -478,7 +543,8 @@ def gan_train_step(st: Dict[str, Any], batch: Dict[str, Dict[str, Any]], *,
                    step_groups: Sequence[ProfileGroup], total_clients: int,
                    gen_apply: Callable, disc_apply: Callable,
                    opt_update: Callable, mesh=None, axes=None,
-                   inplace: bool = False):
+                   inplace: bool = False,
+                   mark: Callable[[str], None] = _no_mark):
     """One D then G update from ``st`` on ``batch``: returns (the new
     state, the losses, the middle activations). ``inplace`` writes the
     new parameters, statistics, moments and steps into ``st``'s own
@@ -491,7 +557,11 @@ def gan_train_step(st: Dict[str, Any], batch: Dict[str, Dict[str, Any]], *,
     ranks in one collective per net (every replica applies the same
     update), and the losses returned are summed over the ranks. The
     trainer's step (``HuSCFTrainer._step``) and the dry run's
-    (``launch.dryrun_paper``) are this function."""
+    (``launch.dryrun_paper``) are this function. ``mark(name)`` is
+    called after D's gradients (``"grad_d"``), D's Adam update and
+    BatchNorm merge (``"adam_d"``), G's gradients (``"grad_g"``) and
+    G's update (``"adam_g"``): the points of the trainer's
+    ``StepClock`` on the card."""
     groups = step_groups
     sharded = axes is not None
 
@@ -534,6 +604,7 @@ def gan_train_step(st: Dict[str, Any], batch: Dict[str, Dict[str, Any]], *,
 
     loss_d, (d_bn, mids), grads_d = value_and_grad(d_loss, d_params)
     sum_server_grads(grads_d)
+    mark("grad_d")
     opt_d, d_new = opt_update(st["opt_d"], grads_d, d_params,
                               inplace=inplace)
     del grads_d
@@ -542,6 +613,7 @@ def gan_train_step(st: Dict[str, Any], batch: Dict[str, Dict[str, Any]], *,
         merge_bn_(d_new, d_bn)
     else:
         d_new = merge_bn(d_new, d_bn)
+    mark("adam_d")
 
     # ---------------- generator update (vs updated D)
     def g_loss(g_p):
@@ -556,18 +628,22 @@ def gan_train_step(st: Dict[str, Any], batch: Dict[str, Dict[str, Any]], *,
 
     loss_g, g_bn, grads_g = value_and_grad(g_loss, g_params)
     sum_server_grads(grads_g)
+    mark("grad_g")
     opt_g, g_new = opt_update(st["opt_g"], grads_g, g_params,
                               inplace=inplace)
     del grads_g
+    if inplace:
+        merge_bn_(g_new, g_bn)
+    else:
+        g_new = merge_bn(g_new, g_bn)
+    mark("adam_g")
     if sharded:
         both = mesh_mod.all_reduce_sum(torch.stack([loss_d, loss_g]),
                                        mesh, axes)
         loss_d, loss_g = both[0], both[1]
     metrics = {"loss_d": loss_d, "loss_g": loss_g}
     if inplace:
-        merge_bn_(g_new, g_bn)
         return st, metrics, mids
-    g_new = merge_bn(g_new, g_bn)
     return ({"G": g_new, "D": d_new, "opt_g": opt_g, "opt_d": opt_d,
              "step": st["step"] + 1}, metrics, mids)
 
@@ -632,11 +708,12 @@ class HuSCFTrainer:
                                                 seed=config.seed)
         self.ga_seconds: Optional[float] = None    # wall time of the GA
         if cuts is None:
-            t0 = time.perf_counter()
-            result = optimize_cuts(self.devices, server, batch=config.batch,
-                                   config=self._ga_config,
-                                   device=self.device)
-            self.ga_seconds = time.perf_counter() - t0
+            with trace.span("huscf.init.cut_search") as sp:
+                result = optimize_cuts(self.devices, server,
+                                       batch=config.batch,
+                                       config=self._ga_config,
+                                       device=self.device)
+            self.ga_seconds = sp.seconds
             cuts = result.cuts
             self.ga_latency = result.latency
         else:
@@ -846,6 +923,10 @@ class HuSCFTrainer:
     def _init_state(self, gen: torch.Generator) -> Dict[str, Any]:
         """The whole state's draws from ``gen`` (the unsharded trainer's),
         of which a sharded step keeps this rank's rows, group by group."""
+        with trace.span("huscf.init.state"):
+            return self._draw_state(gen)
+
+    def _draw_state(self, gen: torch.Generator) -> Dict[str, Any]:
         dev = self.device
         params = {}
         for net, defs in (("G", GEN_LAYER_DEFS), ("D", DISC_LAYER_DEFS)):
@@ -875,7 +956,7 @@ class HuSCFTrainer:
 
     # -- one training step ----------------------------------------------------
     def _step(self, st: Dict[str, Any], batch: Dict[str, Dict[str, Any]],
-              inplace: bool = False):
+              inplace: bool = False, mark: Callable[[str], None] = _no_mark):
         """One D then G update from ``st`` on ``batch``
         (``gan_train_step`` with this trainer's groups, executors,
         optimizer and mesh layout)."""
@@ -884,7 +965,7 @@ class HuSCFTrainer:
             total_clients=sum(g.size for g in self.groups),
             gen_apply=self._gen_apply, disc_apply=self._disc_apply,
             opt_update=self._opt_update, mesh=self.fed_mesh,
-            axes=self._shard_axes, inplace=inplace)
+            axes=self._shard_axes, inplace=inplace, mark=mark)
 
     def _sample(self, gen: torch.Generator):
         """One training batch: the ``batch_source``'s next (this rank's
@@ -905,12 +986,16 @@ class HuSCFTrainer:
         # weakly: a cycle would keep the state and the graphs' pool on
         # the card until the garbage collector found it
         me = weakref.proxy(self)
+        # the card's pool times the steps' phases (a stand-in pool of the
+        # CPU tests has no clock)
+        clock = getattr(self._graph_pool, "clock", None)
+        mark = _no_mark if clock is None else clock.mark
         return make_epoch_fn(
             self._step_groups,
-            lambda st, b: me._step(st, b, inplace=True)[1:],
+            lambda st, b: me._step(st, b, inplace=True, mark=mark)[1:],
             lambda gen: me._sample(gen), n_steps,
             unroll=self.cfg.epoch_unroll or 1, graphs=self._graph_pool,
-            rows=self._rows)
+            rows=self._rows, mark=mark)
 
     def _drop_graphs(self) -> None:
         """Everything captured on the old carry or grouping goes: the
@@ -965,7 +1050,8 @@ class HuSCFTrainer:
             raise ValueError("a batch_source is a host callable and cannot "
                              "be replayed in a CUDA graph: pass "
                              "fused_epoch=False to train from it on the card")
-        self._adopt_carry()
+        with trace.span("huscf.train_steps.adopt"):
+            self._adopt_carry()
         if self.step_sharded and self._graph_coll is None:
             # a collective: every rank of the mesh is in this epoch;
             # gloo ranks on several cards raise here
@@ -985,20 +1071,32 @@ class HuSCFTrainer:
 
     # -- public API ----------------------------------------------------------
     def train_steps(self, n_steps: int) -> Dict[str, float]:
-        if self.cfg.fused_epoch:
-            losses = self._fused_epoch(n_steps)
-            back = torch.stack(list(losses.values()))
-            words = (None if self._graph_coll is None
-                     else self._graph_coll.error_words())
-            if words is None:
-                # the epoch's one readback
-                return dict(zip(losses, back.tolist()))
+        with trace.span("huscf.train_steps", steps=n_steps):
+            if self.cfg.fused_epoch:
+                return self._fused_steps(n_steps)
+            return self._loop_steps(n_steps)
+
+    def _fused_steps(self, n_steps: int) -> Dict[str, float]:
+        losses = self._fused_epoch(n_steps)
+        back = torch.stack(list(losses.values()))
+        words = (None if self._graph_coll is None
+                 else self._graph_coll.error_words())
+        if words is not None:
             # the losses and the shared all-reduce's error words, in one
             # readback (float64 holds the int32 words exactly)
-            back = torch.cat([back.double(), words.double()]).tolist()
-            for i in range(len(losses), len(back), 5):
-                check_error(back[i:i + 5])
-            return dict(zip(losses, back))
+            back = torch.cat([back.double(), words.double()])
+        with trace.span("huscf.train_steps.readback"):
+            back = back.tolist()             # the epoch's one readback
+        # the card is idle now: the last step's phases read no further
+        clock = getattr(self._graph_pool, "clock", None)
+        phases = None if clock is None else clock.phases()
+        for name, ms in (phases or {}).items():
+            trace.event("huscf.step." + name, ms=ms)
+        for i in range(len(losses), len(back), 5):
+            check_error(back[i:i + 5])
+        return dict(zip(losses, back))
+
+    def _loop_steps(self, n_steps: int) -> Dict[str, float]:
         metrics = {}
         for _ in range(n_steps):
             self.state, metrics, mids = self._step(
@@ -1030,7 +1128,8 @@ class HuSCFTrainer:
         if not self._ema_init:
             raise RuntimeError("middle_activations() before any training "
                                "step: the EMA is empty")
-        return self._whole_ema().detach().cpu().clone().numpy()
+        return trace.readback("ema.host",
+                              self._whole_ema().detach()).clone().numpy()
 
     _MESH_DEFAULT = object()     # sentinel: mesh=None must stay sayable
 
@@ -1064,6 +1163,14 @@ class HuSCFTrainer:
             with self._whole():
                 return self.federate(use_label_kld, init_centers, cohort_ids,
                                      mesh)
+        with trace.span("huscf.federate") as sp:
+            diag = self._round(mesh, use_label_kld, init_centers, cohort_ids)
+            sp.attrs["mode"] = diag["mode"]
+        return diag
+
+    def _round(self, mesh, use_label_kld: bool, init_centers, cohort_ids
+               ) -> Dict[str, Any]:
+        """``federate``'s round on ``mesh`` (None: one device)."""
         self._round_mesh = mesh if mesh is not None and mesh.size() > 1 \
             else None
         if self._round_mesh is not None and not self.step_sharded:
@@ -1112,13 +1219,16 @@ class HuSCFTrainer:
         for net in ("G", "D"):
             wrapped = {g.name: {net: self.state[net]["client"][g.name]}
                        for g in self.groups}
-            out = federate_fn(self.groups, wrapped, *args,
-                              n_layers={net: N_LAYERS[net]},
-                              use_kernel=self.cfg.use_kernel,
-                              plan_cache=self._fed_plans,
-                              chunk_size=self.cfg.agg_chunk,
-                              mesh=self._round_mesh,
-                              local_rows=self.step_sharded, **kwargs)
+            plans = len(self._fed_plans)
+            with trace.span("huscf.federate.aggregate", net=net) as sp:
+                out = federate_fn(self.groups, wrapped, *args,
+                                  n_layers={net: N_LAYERS[net]},
+                                  use_kernel=self.cfg.use_kernel,
+                                  plan_cache=self._fed_plans,
+                                  chunk_size=self.cfg.agg_chunk,
+                                  mesh=self._round_mesh,
+                                  local_rows=self.step_sharded, **kwargs)
+                sp.attrs["plan_built"] = len(self._fed_plans) > plans
             self.state[net]["client"] = {g.name: out[g.name][net]
                                          for g in self.groups}
 
@@ -1137,20 +1247,23 @@ class HuSCFTrainer:
             raise RuntimeError("federate() before any training step: the "
                                "middle-activation EMA is empty")
         acts = self._whole_ema()
-        labels, k_sel, sil = cluster_activations(
-            acts, k=self.cfg.num_clusters, use_kernel=self.cfg.use_kernel,
-            gen=self._cluster_gen, init_centers=init_centers)
+        with trace.span("huscf.federate.cluster"):
+            labels, k_sel, sil = cluster_activations(
+                acts, k=self.cfg.num_clusters, use_kernel=self.cfg.use_kernel,
+                gen=self._cluster_gen, init_centers=init_centers)
         bound = k_selection_bound(len(self.clients), self.cfg.num_clusters)
-        weights, klds = kld_mod.activation_weights(
-            acts, self._sizes_dev, labels, bound, self.cfg.beta,
-            cohort_mask=cohort_mask)
+        with trace.span("huscf.federate.kld"):
+            weights, klds = kld_mod.activation_weights(
+                acts, self._sizes_dev, labels, bound, self.cfg.beta,
+                cohort_mask=cohort_mask)
         if self._round_mesh is not None:
             # the first rank's clustering for every rank of the round
             ks = torch.tensor([float(k_sel), float(sil)], dtype=torch.float64,
                               device=self.device)
             mesh_mod.broadcast_from_first([labels, weights, klds, ks],
                                           self._round_mesh)
-            k_sel, sil = int(ks[0]), float(ks[1])
+            k_sel, sil = trace.readback("cluster.broadcast", ks).tolist()
+            k_sel = int(k_sel)
         self._federate_nets(federate_client_params_device, weights, labels,
                             bound, cohort_mask=cohort_mask,
                             cohort_size=self.cfg.cohort_size)
@@ -1165,20 +1278,22 @@ class HuSCFTrainer:
         renormalization (KLDs stay full-cluster), then the aggregation
         on the device."""
         acts = self.middle_activations()
-        cl = cluster_activations_np(acts, k=self.cfg.num_clusters,
-                                    seed=self.cfg.seed)
-        if use_label_kld:
-            hists = np.stack([np.bincount(c.labels,
-                                          minlength=gan.NUM_CLASSES)
-                              for c in self.clients])
-            weights, klds = kld_mod.label_weights(hists, self.sizes,
-                                                  cl.labels, self.cfg.beta)
-        else:
-            weights, klds = kld_mod.activation_weights_np(
-                acts, self.sizes, cl.labels, self.cfg.beta)
-        if cohort_mask is not None:
-            weights = kld_mod.cohort_federation_weights_np(
-                klds, self.sizes, cl.labels, cohort_mask, self.cfg.beta)
+        with trace.span("huscf.federate.cluster"):
+            cl = cluster_activations_np(acts, k=self.cfg.num_clusters,
+                                        seed=self.cfg.seed)
+        with trace.span("huscf.federate.kld"):
+            if use_label_kld:
+                hists = np.stack([np.bincount(c.labels,
+                                              minlength=gan.NUM_CLASSES)
+                                  for c in self.clients])
+                weights, klds = kld_mod.label_weights(
+                    hists, self.sizes, cl.labels, self.cfg.beta)
+            else:
+                weights, klds = kld_mod.activation_weights_np(
+                    acts, self.sizes, cl.labels, self.cfg.beta)
+            if cohort_mask is not None:
+                weights = kld_mod.cohort_federation_weights_np(
+                    klds, self.sizes, cl.labels, cohort_mask, self.cfg.beta)
         k_sel, sil, labels = cl.k, cl.silhouette, cl.labels
         if self._round_mesh is not None:
             # the first rank's clustering for every rank of the round
@@ -1186,10 +1301,12 @@ class HuSCFTrainer:
                  for a in (labels, weights, klds, [k_sel, sil])]
             mesh_mod.broadcast_from_first(t, self._round_mesh)
             labels, weights, klds = (
-                x.cpu().numpy().astype(a.dtype) for x, a in
-                zip(t[:3], (np.asarray(labels), np.asarray(weights),
-                            np.asarray(klds))))
-            k_sel, sil = int(t[3][0]), float(t[3][1])
+                trace.readback("cluster.broadcast", x).numpy().astype(a.dtype)
+                for x, a in zip(t[:3], (np.asarray(labels),
+                                        np.asarray(weights),
+                                        np.asarray(klds))))
+            k_sel, sil = trace.readback("cluster.broadcast", t[3]).tolist()
+            k_sel = int(k_sel)
         self._federate_nets(federate_client_params, weights, labels,
                             cohort_mask=cohort_mask)
         return {"round": self.fed_round, "mode": "clustered", "k": k_sel,

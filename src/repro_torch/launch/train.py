@@ -23,7 +23,11 @@ fused, as in the reference (``HuSCFConfig.fused_epoch``): on the card
 each epoch is replays of a CUDA graph of the training step, with the
 batches drawn on the device and the losses read back once; the launcher
 prints ``fused epochs``. ``--per-step`` runs the per-step loop, the
-reference's oracle, and prints ``per-step epochs``.
+reference's oracle, and prints ``per-step epochs``. Each epoch's line
+gives its steps' time (the ``huscf.train_steps`` span of
+``repro_torch.trace``); after a federation round a ``[train] round``
+line gives its clustering, KLD and aggregation milliseconds and its
+host reads.
 
 Population scale: ``--cohort S`` samples S clients per federation
 round, ``--agg-chunk c`` streams every aggregation in chunks of c
@@ -85,6 +89,8 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import trace
+
 
 def fed_ranks(args) -> int:
     """The ranks ``--fed-devices`` asks for: by default every visible GPU
@@ -139,6 +145,25 @@ def rank_summary(tr) -> dict:
             "groups": len(tr.groups), "ga_latency": tr.ga_latency}
 
 
+def round_lines(recs) -> list:
+    """One line per federation round among ``recs`` (``trace``'s
+    records): its clustering, KLD weights and aggregation in ms, and the
+    device values it read on the host."""
+    out = []
+    for fed in (r for r in recs if r.name == "huscf.federate"):
+        inside = [r for r in recs if fed.t0 <= r.t0 and r.t1 <= fed.t1]
+
+        def ms(name):
+            return 1e3 * sum(r.seconds for r in inside if r.name == name)
+        reads = sum(r.name == trace.READBACK for r in inside)
+        out.append(f"[train] round ({fed.attrs.get('mode')}): cluster "
+                   f"{ms('huscf.federate.cluster'):.1f} ms, kld "
+                   f"{ms('huscf.federate.kld'):.1f} ms, aggregate "
+                   f"{ms('huscf.federate.aggregate'):.1f} ms, {reads} "
+                   "readbacks")
+    return out
+
+
 def _train_huscf(args, n_ranks: int):
     import torch.distributed as dist
     from repro_torch.core.huscf import HuSCFConfig, HuSCFTrainer
@@ -183,11 +208,15 @@ def _train_huscf(args, n_ranks: int):
         f"{'per-step' if args.per_step else 'fused'} epochs, "
         f"{agg} aggregation, {part}{reopt}")
     for ep in range(args.epochs):
-        t0 = time.time()
+        since = time.perf_counter_ns()
         m = tr.train_epoch()
+        recs = [r for r in trace.records() if r.t0 >= since]
+        steps_s = sum(r.seconds for r in recs
+                      if r.name == "huscf.train_steps")
         say(f"[train] epoch {ep + 1}: loss_d={m['loss_d']:.3f} "
-            f"loss_g={m['loss_g']:.3f} ({time.time() - t0:.1f}s)",
-            flush=True)
+            f"loss_g={m['loss_g']:.3f} ({steps_s:.1f}s)", flush=True)
+        for line in round_lines(recs):
+            say(line, flush=True)
     if args.ckpt:
         # a collective on a mesh: every rank gathers, rank 0 writes
         tr.save_checkpoint(args.ckpt)

@@ -120,7 +120,7 @@ class FakePool:
         step()
         self.warm = True
 
-    def capture(self, run, gen):
+    def capture(self, run, gen, steps):
         self.captures.append(run)
         return FakeGraph(run)
 
