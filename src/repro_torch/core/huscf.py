@@ -112,12 +112,11 @@ from repro_torch.data.pipeline import (sample_batch, stage_clients,
                                        step_client_axes)
 from repro_torch.kernels.shared_allreduce import check_error
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.models import gan
+from repro_torch.models import gan, nn
 from repro_torch.models.gan import (DISC_LAYER_DEFS, DISC_MIDDLE_FEATURES,
                                     GEN_LAYER_DEFS, Z_DIM)
 from repro_torch.optim.optimizers import AdamState, adam
-from repro_torch.sharding.policy import (data_axes, maybe_shard, row_block,
-                                         shard_index)
+from repro_torch.sharding.policy import data_axes, row_block, shard_index
 from repro_torch.tree import tree_from_items, tree_items, tree_leaves, tree_map
 
 _EMA_DECAY = 0.8                     # middle-activation EMA (stage 3 input)
@@ -192,16 +191,11 @@ def build_net_apply_legacy(groups: Sequence[ProfileGroup], net: str,
         new_client = {g.name: dict(client_params[g.name]) for g in groups}
         new_server = dict(server_params)
         bufs: Dict[str, torch.Tensor] = {}
-        shapes: Dict[str, Tuple[int, int]] = {}
         for g in groups:
             h, _ = layer_pair(g.cut, net)
-            acts, upd = head_pass(defs, client_params[g.name],
-                                  inputs[g.name], h, train)
+            bufs[g.name], upd = head_pass(defs, client_params[g.name],
+                                          inputs[g.name], h, train)
             new_client[g.name].update(upd)
-            k, b = acts.shape[0], acts.shape[1]
-            shapes[g.name] = (k, b)
-            bufs[g.name] = maybe_shard(
-                acts.reshape((k * b,) + acts.shape[2:]), "rows")
         outs: Dict[str, torch.Tensor] = {}
         middles: Dict[str, torch.Tensor] = {}
         for l in span:
@@ -212,21 +206,17 @@ def build_net_apply_legacy(groups: Sequence[ProfileGroup], net: str,
                 defs[l], server_params[str(l)],
                 [bufs[g.name] for g in active], train, concat_groups, reduce)
             for g, part in zip(active, parts):
-                bufs[g.name] = part = maybe_shard(part, "rows")
+                bufs[g.name] = part
                 if capture_middle and l == middle:
-                    k, b = shapes[g.name]
-                    middles[g.name] = part.reshape(k, b, -1).float().mean(1)
+                    middles[g.name] = part.flatten(2).float().mean(1)
                 if layer_pair(g.cut, net)[1] == l + 1:
                     outs[g.name] = part
         results: Dict[str, torch.Tensor] = {}
         for g in groups:
             _, t = layer_pair(g.cut, net)
-            k, b = shapes[g.name]
-            x = outs[g.name]
-            y, upd = tail_pass(defs, client_params[g.name],
-                               x.reshape((k, b) + x.shape[1:]), t, n, train)
+            results[g.name], upd = tail_pass(defs, client_params[g.name],
+                                             outs[g.name], t, n, train)
             new_client[g.name].update(upd)
-            results[g.name] = y
         return results, new_client, new_server, middles
 
     return apply
@@ -421,10 +411,12 @@ class GraphPool:
         torch.cuda.empty_cache()
         before = torch.cuda.memory_reserved(dev)
         with trace.span("huscf.graphs.capture", steps=steps) as sp:
+            copies = nn.layout_copies
             with trace.paused(), self.clock.record() as sets, \
                     torch.cuda.graph(g, pool=self.pool, stream=self.stream):
                 run()
             torch.cuda.synchronize(dev)
+            sp.attrs["layout_copies"] = (nn.layout_copies - copies) // steps
         self.capture_s += sp.seconds
         self.pool_bytes += torch.cuda.memory_reserved(dev) - before
         self.clock.sets[g] = sets
@@ -505,9 +497,12 @@ def make_epoch_fn(groups: Sequence[ProfileGroup], step_core: Callable,
                          for g in groups})
         args = (state, gen, ema, ema_init, losses)
         if graphs is None:
-            with trace.span("huscf.train_steps.launch"):
+            with trace.span("huscf.train_steps.launch") as sp:
+                copies = nn.layout_copies
                 for _ in range(n_steps):
                     body(*args)
+                sp.attrs["layout_copies"] = \
+                    (nn.layout_copies - copies) // max(n_steps, 1)
             return losses
         carry = [x for _, x in _carry_items(state)] + [ema, ema_init, gen,
                                                         *losses.values()]

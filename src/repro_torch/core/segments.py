@@ -11,7 +11,8 @@ per-group client tails. ``make_apply`` executes it:
   with per-client weights, so their BatchNorm statistics are per
   client;
 * each server step concatenates the rows of every active group, in
-  group order, so server BatchNorm statistics span the population
+  group order and client-major (``join_rows``: the one copy where rows
+  change owner), so server BatchNorm statistics span the population
   (``concat_groups=True``, the paper's Eq. 7 join); with
   ``concat_groups=False`` each group runs through the shared server
   weights on its own, so the statistics are per group ("ghost BN") and
@@ -37,6 +38,7 @@ import torch
 from repro_torch.core.latency import PAPER_SERVER, DeviceProfile
 from repro_torch.core.splitting import (ProfileGroup, bucket_size, layer_pair,
                                         server_union_span)
+from repro_torch.models import nn
 from repro_torch.models.gan import NET_LAYER_COSTS, NET_LAYER_DEFS
 from repro_torch.sharding.policy import maybe_shard
 from repro_torch.tree import tree_map
@@ -127,13 +129,45 @@ def tail_pass(defs, params, x, start: int, n: int, train: bool):
     return x, new
 
 
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [k, b, ...] as rows [k*b, ...]: a view where they lie
+    client-major, else one copy (counted in ``nn.layout_copies``)."""
+    k, b = x.shape[:2]
+    if k > 1 and b > 1 and x.stride(0) != b * x.stride(1):
+        nn.count_layout_copy()
+    return x.reshape((-1,) + x.shape[2:])
+
+
+def join_rows(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The active groups' activations (each ``[k, b, ...]``, in group
+    order) as one batch of rows ``[sum k*b, ...]``, client-major: one
+    copy where rows change owner (several groups join, or one group's
+    clients are stored client-minor, as a client convolution leaves
+    them), counted in ``nn.layout_copies``; a view where one group's rows
+    already lie so (a server layer's output, G's dense layer 0). Groups
+    of unequal batches join as rows, each copied once more where it is
+    client-minor."""
+    if len(xs) == 1:
+        x = _rows(xs[0])
+    elif len({x.shape[1:] for x in xs}) == 1:
+        nn.count_layout_copy()
+        x = _rows(torch.cat(xs, 0))
+    else:
+        nn.count_layout_copy()
+        x = torch.cat([_rows(x) for x in xs], 0)
+    return maybe_shard(x, "rows")
+
+
 def _server_layer(layer_def, params, x, train: bool, reduce=None):
     """A shared server layer on concatenated rows [N, ...]: run it as a
     single copy (K = 1) of the client-batched layer; ``reduce`` sums its
-    BatchNorm statistics over the ranks that hold the other rows."""
+    BatchNorm statistics over the ranks that hold the other rows
+    (``nn.one_rank`` without it: the statistics take the same path
+    sharded or not, ``nn.batchnorm_apply``)."""
     y, upd = layer_def.apply(tree_map(lambda t: t[None], params), x[None],
-                             train, reduce=reduce)
-    return y[0], tree_map(lambda t: t[0], upd)
+                             train,
+                             reduce=nn.one_rank if reduce is None else reduce)
+    return maybe_shard(y[0], "rows"), tree_map(lambda t: t[0], upd)
 
 
 def _mean_stats(params, updates):
@@ -156,24 +190,23 @@ def _mean_stats(params, updates):
 
 def server_pass(layer_def, params, xs: Sequence[torch.Tensor], train: bool,
                 concat_groups: bool = True, reduce=None):
-    """One shared server layer over the active groups' rows ``xs`` (in
-    group order): returns (each group's output rows, the layer's new
-    params). ``concat_groups`` runs the rows as one batch; otherwise
-    each group runs on its own and the statistics merge by
-    ``_mean_stats``. ``reduce`` (a client-sharded step's
-    ``launch.mesh.reduce_sum`` over the mesh) sums each BatchNorm's
-    statistics over the ranks, which hold the other rows of every
-    group."""
+    """One shared server layer over the active groups' activations ``xs``
+    (each ``[k, b, ...]``, in group order): returns (each group's output
+    ``[k, b, ...]``, views of the layer's output rows, and the layer's
+    new params). ``concat_groups`` runs the rows as one batch
+    (``join_rows``); otherwise each group runs on its own and the
+    statistics merge by ``_mean_stats``. ``reduce`` (a client-sharded
+    step's ``launch.mesh.reduce_sum`` over the mesh) sums each
+    BatchNorm's statistics over the ranks, which hold the other rows of
+    every group."""
     if not concat_groups:
-        runs = [_server_layer(layer_def, params, x, train, reduce)
-                for x in xs]
-        return [y for y, _ in runs], _mean_stats(params,
-                                                 [u for _, u in runs])
-    x = torch.cat(xs, 0) if len(xs) > 1 else xs[0]
-    y, new = _server_layer(layer_def, params, x, train, reduce)
-    if len(xs) == 1:
-        return [y], new
-    return list(torch.split(y, [x.shape[0] for x in xs], 0)), new
+        runs = [_server_layer(layer_def, params, join_rows([x]), train,
+                              reduce) for x in xs]
+        return ([y.unflatten(0, x.shape[:2]) for (y, _), x in zip(runs, xs)],
+                _mean_stats(params, [u for _, u in runs]))
+    y, new = _server_layer(layer_def, params, join_rows(xs), train, reduce)
+    rows = torch.split(y, [x.shape[0] * x.shape[1] for x in xs], 0)
+    return [r.unflatten(0, x.shape[:2]) for r, x in zip(rows, xs)], new
 
 
 def make_apply(program: SplitProgram, capture_middle: bool = False,
@@ -195,15 +228,11 @@ def make_apply(program: SplitProgram, capture_middle: bool = False,
                       for name in program.group_names}
         new_server = dict(server_params)
         bufs: Dict[str, torch.Tensor] = {}
-        shapes: Dict[str, Tuple[int, int]] = {}
         for seg in program.heads:
-            acts, upd = head_pass(defs, client_params[seg.gname],
-                                  inputs[seg.gname], seg.stop, train)
+            bufs[seg.gname], upd = head_pass(defs, client_params[seg.gname],
+                                             inputs[seg.gname], seg.stop,
+                                             train)
             new_client[seg.gname].update(upd)
-            k, b = acts.shape[0], acts.shape[1]
-            shapes[seg.gname] = (k, b)
-            bufs[seg.gname] = maybe_shard(
-                acts.reshape((k * b,) + acts.shape[2:]), "rows")
         outs: Dict[str, torch.Tensor] = {}
         middles: Dict[str, torch.Tensor] = {}
         for step in program.steps:
@@ -213,21 +242,17 @@ def make_apply(program: SplitProgram, capture_middle: bool = False,
                 [bufs[gname] for gname in step.active], train, concat_groups,
                 reduce)
             for gname, part in zip(step.active, parts):
-                bufs[gname] = part = maybe_shard(part, "rows")
+                bufs[gname] = part
                 if capture_middle and l == middle:
-                    k, b = shapes[gname]
-                    middles[gname] = part.reshape(k, b, -1).float().mean(1)
+                    middles[gname] = part.flatten(2).float().mean(1)
                 if gname in step.departs:
                     outs[gname] = part
         results: Dict[str, torch.Tensor] = {}
         for seg in program.tails:
-            k, b = shapes[seg.gname]
-            x = outs[seg.gname]
-            y, upd = tail_pass(defs, client_params[seg.gname],
-                               x.reshape((k, b) + x.shape[1:]), seg.start, n,
-                               train)
+            results[seg.gname], upd = tail_pass(
+                defs, client_params[seg.gname], outs[seg.gname], seg.start,
+                n, train)
             new_client[seg.gname].update(upd)
-            results[seg.gname] = y
         return results, new_client, new_server, middles
 
     return apply

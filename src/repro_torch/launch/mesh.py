@@ -20,7 +20,8 @@ stages them through the host).
 
 The collectives of the client-sharded training step: ``reduce_sum``
 (``all_reduce_sum`` as an autograd function whose backward is again a
-sum over the ranks: the server's BatchNorm statistics),
+sum over the ranks: the server's BatchNorm statistics, float64 sums
+added in rank order from float32 words),
 ``all_reduce_flat`` (the server's gradients, one call per net),
 ``all_gather_rows`` (per-group row blocks made whole: the EMA before a
 round) and ``gather_state`` / ``keep_rows``, which turn a rank's state
@@ -64,7 +65,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels.shared_allreduce import SharedAllReduce
-from repro_torch.sharding.policy import data_axes, row_block
+from repro_torch.sharding.policy import data_axes, row_block, shard_index
 
 # one NVIDIA H100 SXM5 80GB at a 700 W power limit, for the roofline
 # analysis (a card set below 700 W runs slower under load)
@@ -313,6 +314,32 @@ def graph_collectives(coll: Optional[GraphCollectives]):
         _graph = prev
 
 
+def _sum64(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The float64 ``x`` summed over the ranks along ``axes`` through one
+    float32 ``all_reduce_sum`` (every route carries float32): each rank
+    writes ``x`` as two float32 words, whose sum holds 48 of its 53 bits,
+    into its own slot of a zeroed buffer; the all-reduce fills every
+    slot, since adding zeros is exact; and the slots add up in float64
+    in rank order, the same on every rank whatever the route."""
+    idx, count = shard_index(mesh, axes)
+    hi = x.float()
+    buf = x.new_zeros((count, 2) + tuple(x.shape), dtype=torch.float32)
+    buf[idx, 0] = hi
+    buf[idx, 1] = (x - hi.double()).float()
+    all_reduce_sum(buf, mesh, axes)
+    parts = buf.double().sum(1)
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+def _sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    if x.dtype == torch.float64:
+        return _sum64(x, mesh, axes)
+    return all_reduce_sum(x.contiguous().clone(), mesh, axes)
+
+
 class _ReduceSum(torch.autograd.Function):
     """The sum over the ranks, out of place; its backward is again the
     sum over the ranks: every rank's loss reads the same sum, so each
@@ -321,18 +348,20 @@ class _ReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes):
         ctx.mesh, ctx.axes = mesh, axes
-        return all_reduce_sum(x.contiguous().clone(), mesh, axes)
+        return _sum(x, mesh, axes)
 
     @staticmethod
     def backward(ctx, grad):
-        return (all_reduce_sum(grad.contiguous().clone(), ctx.mesh, ctx.axes),
-                None, None)
+        return _sum(grad, ctx.mesh, ctx.axes), None, None
 
 
 def reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """``all_reduce_sum`` as a differentiable function (a new tensor, the
     input untouched); ``x`` itself without a mesh or on a 1-rank mesh.
-    The sharded step reduces its server BatchNorm statistics with it."""
+    A float64 ``x`` is summed in rank order (``_sum64``), so every rank
+    gets the same sum, and one that rounds to the float32 of a single
+    float64 sum of every rank's terms. The sharded step reduces its
+    server BatchNorm statistics with it (``models.nn._row_stats``)."""
     if _trivial(mesh):
         return x
     return _ReduceSum.apply(x, mesh, axes)

@@ -19,7 +19,8 @@ Every layer is a ``LayerDef(init, apply)``. ``init(n, gen, device,
 dtype=torch.float32)`` draws ``n`` independent copies stacked on a
 leading axis;
 ``apply(p, x, train, reduce=None) -> (y, new_p)`` takes params with a
-leading client axis ``K`` and activations ``[K, b, ...]`` (NHWC), so a
+leading client axis ``K`` and activations ``[K, b, ...]`` (NHWC; a
+convolution's are stored client-minor, ``models.nn``'s "Layouts"), so a
 profile group's stacked clients run as one call (the reference's
 ``vmap``). Server layers run with ``K = 1`` (see ``core.segments``);
 ``reduce`` is their BatchNorm statistics' sum over the ranks of a
@@ -120,7 +121,7 @@ def _d0_apply(p, x, train, reduce=None):
     img, y = x                                 # img [K, b, 28, 28, 1]
     e = nn.embedding_apply(p["embed"], y)
     e = e.reshape(e.shape[0], e.shape[1], IMG, IMG, 1)
-    h = torch.cat([img, e.to(img.dtype)], -1)
+    h = nn.channel_cat([img, e.to(img.dtype)])  # client-minor, for the conv
     h = nn.conv2d_apply(p["conv"], h, stride=2)
     h, bn = nn.batchnorm_apply(p["bn"], h, train=train, reduce=reduce)
     return nn.leaky_relu(h), {**p, "bn": bn}

@@ -8,11 +8,24 @@ leading copy axis ``K`` and every activation a leading ``[K, b]`` pair:
 which is what the reference gets from ``jax.vmap``. Convolutions do it
 as one grouped convolution with ``groups=K``.
 
-Layouts: activations are NHWC, as in the reference. Conv kernels are
-kept as ``[K, O, I, kh, kw]``; transposed-conv kernels as
-``[K, I, O, kh, kw]`` already flipped in space, i.e. ready for
-``F.conv_transpose2d``. ``repro_torch.bridge`` converts from and to
-the reference's HWIO kernels.
+Layouts: activations are NHWC, as in the reference: logically ``[K,
+b, H, W, C]``. On a convolution's path they are stored client-minor,
+physically ``[b, H, W, K, C]`` (a permuted view), so that the grouped
+input ``[b, K*C, H, W]`` is a ``torch.channels_last`` view of the same
+storage and cuDNN's channels-last output ``[b, K*O, H', W']``, physically
+``[b, H', W', K, O]``, is the next activation as it lies; BatchNorm, the
+activations and the bias add keep the layout (elementwise ops follow
+their input's strides). A client-major tensor (contiguous ``[K, b,
+...]``: server rows, G's dense layer 0) is copied client-minor once,
+where it meets a client convolution. One direction runs in NCHW: a
+grouped convolution's input gradient (cuDNN's float32 backward-data is
+faster there, copies included; ``_GroupedConv2d``). With ``K = 1``
+(server layers) both orders are one, and nothing is copied. The copies
+made for a convolution's layout are counted in ``layout_copies``.
+Conv kernels are kept as ``[K, O, I, kh, kw]``; transposed-conv kernels
+as ``[K, I, O, kh, kw]`` already flipped in space, i.e. ready for
+``F.conv_transpose2d``. ``repro_torch.bridge`` converts from and to the
+reference's HWIO kernels.
 
 The LM layers (``linear_*``, ``rmsnorm_*``, ``layernorm_*``,
 ``embedding_table_init``/``embedding_attend``, ``conv1d_*``, the gated
@@ -234,16 +247,50 @@ def conv1d_apply(p: Params, x: torch.Tensor, *, stride: int = 1,
 # ((lo, hi), (lo, hi)) padding with lax's semantics)
 # ---------------------------------------------------------------------------
 
+# activation copies made to give a convolution its layout since the
+# last reset: ``_to_grouped``'s, ``channel_cat``'s, ``core.segments``'
+# row joins and ``_GroupedConv2d``'s backward (the trainer records one
+# step's count on its trace)
+layout_copies = 0
+
+
+def count_layout_copy() -> None:
+    global layout_copies
+    layout_copies += 1
+
+
+def client_minor(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [K, b, H, W, C] stored client-minor (physically ``[b, H, W,
+    K, C]``): ``x`` itself if it is, else one counted copy."""
+    xm = x.permute(1, 2, 3, 0, 4)
+    if xm.is_contiguous():
+        return x
+    count_layout_copy()
+    return xm.contiguous().permute(3, 0, 1, 2, 4)
+
+
+def channel_cat(xs) -> torch.Tensor:
+    """``torch.cat(xs, -1)`` of [K, b, H, W, C_i] tensors, written
+    client-minor: one counted copy (D's layer-0 input)."""
+    count_layout_copy()
+    return torch.cat([x.permute(1, 2, 3, 0, 4) for x in xs],
+                     -1).permute(3, 0, 1, 2, 4)
+
+
 def _to_grouped(x: torch.Tensor) -> torch.Tensor:
-    """[K, b, H, W, C] -> [b, K*C, H, W] (client k owns channel group k)."""
+    """[K, b, H, W, C] -> [b, K*C, H, W] (client k owns channel group k),
+    a channels-last view of ``client_minor(x)``."""
     K, b, H, W, C = x.shape
-    return x.permute(1, 0, 4, 2, 3).reshape(b, K * C, H, W)
+    xm = client_minor(x).permute(1, 2, 3, 0, 4)
+    return xm.reshape(b, H, W, K * C).permute(0, 3, 1, 2)
 
 
 def _from_grouped(y: torch.Tensor, K: int) -> torch.Tensor:
-    """[b, K*O, H, W] -> [K, b, H, W, O]."""
+    """[b, K*O, H, W] -> [K, b, H, W, O], a view: client-minor where
+    ``y`` is channels-last."""
     b, KO, H, W = y.shape
-    return y.reshape(b, K, KO // K, H, W).permute(1, 0, 3, 4, 2)
+    return y.permute(0, 2, 3, 1).reshape(b, H, W, K, KO // K) \
+        .permute(3, 0, 1, 2, 4)
 
 
 def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
@@ -279,8 +326,44 @@ def conv2d_apply(p: Params, x: torch.Tensor, *, stride: int = 1,
     else:
         ph, pw = _explicit_pads(padding)
     xg = F.pad(_to_grouped(x), (pw[0], pw[1], ph[0], ph[1]))
-    y = F.conv2d(xg, w.reshape(K * O, I, kh, kw), stride=stride, groups=K)
+    wg = w.reshape(K * O, I, kh, kw)
+    y = (_GroupedConv2d.apply(xg, wg, stride, K) if K > 1
+         else F.conv2d(xg, wg, stride=stride))
     return _add_bias(p, _from_grouped(y, K))
+
+
+class _GroupedConv2d(torch.autograd.Function):
+    """``F.conv2d(x, w, stride=stride, groups=groups)`` on a channels-last
+    ``x``, whose input gradient runs in NCHW: on an H100, cuDNN's
+    float32 backward-data of the GAN's grouped convolutions took up to
+    twice as long on channels-last tensors as on NCHW ones plus the two
+    copies between them (``PERF.md``). The forward pass and the weight
+    gradient stay channels-last, where they are faster; the input
+    gradient is handed back channels-last. Both copies count in
+    ``layout_copies``."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride: int, groups: int):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, groups)
+        return F.conv2d(x, w, stride=stride, groups=groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, groups = ctx.conf
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            if not gy.is_contiguous():
+                count_layout_copy()
+            gx = torch.nn.grad.conv2d_input(x.shape, w, gy.contiguous(),
+                                            stride, groups=groups)
+            count_layout_copy()
+            gx = gx.contiguous(memory_format=torch.channels_last)
+        if ctx.needs_input_grad[1]:
+            gw = torch.nn.grad.conv2d_weight(x, w.shape, gy, stride,
+                                             groups=groups)
+        return gx, gw, None, None
 
 
 def conv_transpose_pads(k: int, s: int) -> Tuple[int, int]:
@@ -350,13 +433,12 @@ def batchnorm_apply(p: Params, x: torch.Tensor, *, train: bool,
     ``momentum`` of the old value and take the biased variance, as the
     reference does (``nn.BatchNorm2d`` does neither).
 
-    ``reduce`` (training only) sums a tensor over the ranks that hold
-    the batch's other rows, differentiably (``launch.mesh.reduce_sum``):
-    the mean is the reduced sum over the reduced count, and the variance
-    the reduced sum of squared deviations from that mean over the same
-    count, two passes as ``x.var`` takes them. The client-sharded step
-    passes it to the server's layers only; a client's statistics are its
-    own rows'."""
+    ``reduce`` (training only) sums a float64 tensor over the ranks that
+    hold the batch's other rows, differentiably (``launch.mesh.reduce_sum``;
+    ``one_rank`` where one rank holds them all): the statistics then come
+    from ``_row_stats``, whose float32 results do not depend on how the
+    rows are split among the ranks. The shared server layers take it,
+    sharded or not; a client's statistics are its own rows'."""
     dims = tuple(range(1, x.ndim - 1))
     bshape = (x.shape[0],) + (1,) * len(dims) + (x.shape[-1],)
     if not train:
@@ -366,16 +448,44 @@ def batchnorm_apply(p: Params, x: torch.Tensor, *, train: bool,
         mean = x.mean(dims)
         var = x.var(dims, correction=0)
     else:
-        count = float(math.prod(x.shape[d] for d in dims))
-        s = reduce(torch.cat([x.sum(dims),
-                              x.new_full((x.shape[0], 1), count)], -1))
-        n = s[:, -1:]
-        mean = s[:, :-1] / n
-        var = reduce((x - mean.reshape(bshape)).square().sum(dims)) / n
+        mean, var = _row_stats(x, reduce)
     new_p = dict(p)
     new_p["mean"] = momentum * p["mean"] + (1 - momentum) * mean.detach()
     new_p["var"] = momentum * p["var"] + (1 - momentum) * var.detach()
     return _bn_normalize(p, x, mean, var, bshape, eps), new_p
+
+
+def one_rank(t: torch.Tensor) -> torch.Tensor:
+    """``batchnorm_apply``'s ``reduce`` where one rank holds every row of
+    the batch: the sum over that one rank, ``t`` itself."""
+    return t
+
+
+def _row_stats(x: torch.Tensor, reduce: Callable[[torch.Tensor],
+                                                 torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and biased variance of ``x`` [K, N, ..., C] over every axis but
+    the first and the last, from each row's own statistics: the rows'
+    means summed in float64 over the rows and by ``reduce`` over the
+    ranks give the mean, and the rows' variances plus their means'
+    squared deviations from it, summed alike, the variance (the rows
+    have equal sizes). A row's statistics and every term are the same
+    however the rows are split among the ranks, and float64 sums of them
+    round to the same float32 in any order, so a client-sharded step
+    normalises its server rows bit for bit as the unsharded step does."""
+    inner = tuple(range(2, x.ndim - 1))
+    if inner:
+        var_r, mean_r = torch.var_mean(x, inner, correction=0)
+    else:
+        var_r, mean_r = torch.zeros_like(x), x
+    s = reduce(torch.cat([mean_r.sum(1, dtype=torch.float64),
+                          mean_r.new_full((x.shape[0], 1), x.shape[1],
+                                          dtype=torch.float64)], -1))
+    n = s[:, -1:]
+    mean = (s[:, :-1] / n).float()
+    dev = var_r + (mean_r - mean[:, None]).square()
+    var = (reduce(dev.sum(1, dtype=torch.float64)) / n).float()
+    return mean, var
 
 
 def _bn_normalize(p: Params, x, mean, var, bshape, eps: float

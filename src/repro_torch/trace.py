@@ -21,9 +21,11 @@ read a device value on the host: ``x`` copied to the CPU, counted as a
 ``huscf.readback`` event that names its ``site``.
 
 The trainer's records (``core.huscf``): ``huscf.init.cut_search``,
-``huscf.init.state``, ``huscf.graphs.capture`` (``steps``),
-``huscf.train_steps`` (``steps``) over ``.adopt``, ``.launch`` and
-``.readback``, the step's device phases
+``huscf.init.state``, ``huscf.graphs.capture`` (``steps``,
+``layout_copies``: ``models.nn.layout_copies`` made by one captured
+step), ``huscf.train_steps`` (``steps``) over ``.adopt``, ``.launch``
+(on the CPU, where the steps run eagerly, with ``layout_copies`` of one
+step) and ``.readback``, the step's device phases
 ``huscf.step.grad_d``, ``.adam_d``, ``.grad_g`` and ``.adam_g`` (events
 carrying ``ms``), ``huscf.federate`` (``mode``) over ``.cluster``,
 ``.kld`` and ``.aggregate`` (``net``, ``plan_built``), and

@@ -577,6 +577,21 @@ def _collectives(out):
             "summed": summed.tolist(), "grad": grad.tolist(),
             "flat": [f.tolist() for f in flat],
             "calls": dict(tmesh.calls)}
+        tmesh.calls.clear()
+        leaf64 = _terms64(rank).requires_grad_(True)
+        summed64 = tmesh.reduce_sum(leaf64, mesh, "data")
+        grad64, = torch.autograd.grad(
+            (summed64 * torch.arange(1.0, 4.0, dtype=torch.float64)).sum(),
+            [leaf64])
+        out[("sum64", n)] = {"summed": summed64.tolist(),
+                             "grad": grad64.tolist(),
+                             "calls": dict(tmesh.calls)}
+
+
+def _terms64(rank):
+    """A rank's float64 terms, each wider than a float32 holds."""
+    return (torch.tensor([1.0 / 3.0, 1e8 + 1.0 / 7.0, -2.0 ** -30],
+                         dtype=torch.float64) * (rank + 1) + rank / 7.0)
 
 
 def _rank_body(init_np, batches, ckpt):
@@ -927,6 +942,69 @@ def test_batchnorm_reduce_over_one_rank_is_the_local_statistics(shape):
     torch.testing.assert_close(g1, g0, rtol=0, atol=1e-4)
     for k in ("mean", "var"):
         torch.testing.assert_close(s1[k], s0[k], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", RANKS)
+def test_float64_reduce_sum_is_the_rank_order_sum(step_ranks, n):
+    """``reduce_sum`` of a float64 tensor (the server's BatchNorm
+    statistics): the same sum on every rank, the float64 sum of the
+    ranks' terms in rank order within float64's rounding of 48-bit
+    words, through one float32 all-reduce each way; its backward the
+    ranks' gradients summed alike; on 1 rank the tensor itself."""
+    _, ranks = step_ranks
+    recs = _on(ranks, ("sum64", n))
+    assert len(recs) == n
+    want = _terms64(0).numpy()
+    for q in range(1, n):
+        want = want + _terms64(q).numpy()
+    for r in recs:
+        assert r["summed"] == recs[0]["summed"]
+        np.testing.assert_allclose(r["summed"], want, rtol=2.0 ** -46, atol=0)
+        assert r["grad"] == [float(n * k) for k in (1, 2, 3)]
+        assert r["calls"] == ({} if n == 1 else {"all_reduce": 2})
+
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("shape", [(1, 12, 7, 7, 5), (1, 6, 4, 3),
+                                   (1, 12, 3)])
+def test_server_statistics_do_not_depend_on_the_rank_split(shape, n):
+    """A shared server layer's BatchNorm (``batchnorm_apply`` with a
+    ``reduce``): ranks that hold blocks of the rows, their float64 sums
+    added in rank order (threads stand in for the ranks), normalise
+    every row bit for bit as one rank that holds them all
+    (``nn.one_rank``) and keep the same running statistics."""
+    import threading
+    from repro_torch.models import nn as tnn
+    rng = np.random.default_rng(1)
+    C = shape[-1]
+    x = torch.tensor(rng.normal(2.0, 3.0, shape), dtype=torch.float32)
+    p = {"scale": torch.tensor(rng.normal(size=(1, C)), dtype=torch.float32),
+         "bias": torch.tensor(rng.normal(size=(1, C)), dtype=torch.float32),
+         "mean": torch.zeros(1, C), "var": torch.ones(1, C)}
+    whole, stats = tnn.batchnorm_apply(p, x, train=True, reduce=tnn.one_rank)
+    barrier, slots, outs = threading.Barrier(n), [None] * n, [None] * n
+
+    def rank_body(rank, rows):
+        def reduce(t):
+            slots[rank] = t
+            barrier.wait()
+            total = slots[0]
+            for part in slots[1:]:
+                total = total + part
+            barrier.wait()
+            return total
+        outs[rank] = tnn.batchnorm_apply(p, rows, train=True, reduce=reduce)
+
+    threads = [threading.Thread(target=rank_body, args=(r, rows))
+               for r, rows in enumerate(torch.tensor_split(x, n, 1))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert torch.equal(torch.cat([y for y, _ in outs], 1), whole)
+    for _, s in outs:
+        for k in ("mean", "var"):
+            assert torch.equal(s[k], stats[k])
 
 
 def test_launcher_trains_the_sharded_step(capfd):
